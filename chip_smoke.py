@@ -13,16 +13,20 @@ Phases:
    equality) and time, as medians over CUDA events: the kernel's own
    launch into a preallocated output (``ms``), the wrapper a caller uses
    (``wrapper_ms``: output allocation, operand and schedule checks, launch)
-   and the plain version (``plain_ms``);
+   and the plain version (``plain_ms``), on made-up operands;
 3. DSLog ingest + explicit-path ``prov_query`` over the paper's fig 8/9
    workflows at their published sizes, checked against a raw-join oracle;
 4. batched frontiers: the accel DAG queried with the per-hop loop and the
    batched executor, bit-identical, checked against a bijection oracle;
 5. the per-hop dense route: ``theta_join(path="dense")`` on a poorly
-   compressible 20,000-row table, equal to ``path="index"``.
+   compressible 20,000-row table, equal to ``path="index"``;
+6. phase 2's checks and timings again, on the operands phases 3-5 handed
+   the kernels (recorded as they ran), and for each phase 4 frontier the
+   time of the whole pair pipeline (``pipeline``) at each tile size.
 
 Phases 3-5 are the port's main path: both kernels' launch counters are
-zeroed before phase 3 and must have risen after phase 5.  Any failure
+zeroed before phase 3 and must have risen after phase 5; the JSON line
+reports phase 6's numbers for the main path's own operands.  Any failure
 raises and exits non-zero.  Without CUDA, or without the port beside this
 script, it exits non-zero and prints no result.  The last three stdout
 lines are the card's name and power limit, a JSON object of per-kernel
@@ -51,6 +55,9 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 TIMING_REPS = 9
+# block-diagonal tile sizes timed on the main path's first frontier: the
+# port launches at DEFAULT_GEOMETRY (256x256); these are the alternatives
+TILE_GEOMETRIES = ((64, 64), (64, 128), (128, 128), (128, 256), (256, 128), (256, 256))
 
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/range_join.cu"
 REPLACES = {
@@ -267,8 +274,8 @@ def checked(err: int) -> None:
         raise RuntimeError(f"CUDA launch failed with error {err}")
 
 
-def cuda_ms(torch, fn) -> float:
-    """Median milliseconds of ``fn`` over TIMING_REPS runs (CUDA events),
+def cuda_samples(torch, fn) -> list:
+    """Milliseconds of ``fn`` in each of TIMING_REPS runs (CUDA events),
     after one untimed warm-up."""
     fn()
     torch.cuda.synchronize()
@@ -281,7 +288,12 @@ def cuda_ms(torch, fn) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return times
+
+
+def cuda_ms(torch, fn) -> float:
+    """Median milliseconds of ``fn`` over TIMING_REPS runs."""
+    return float(np.median(cuda_samples(torch, fn)))
 
 
 def plain_blocked(torch, plain, q, r, n_attrs, rows=2048):
@@ -316,18 +328,17 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_mask_kernel(torch, rj, ref, lib, rng, nq, nr, n_attrs, seg_lane=False):
+def check_mask_kernel(torch, rj, ref, lib, q, r, n_attrs, label):
+    """Hold ``range_join_mask`` on ``q``/``r`` against its plain version
+    (exact) and time the kernel, the wrapper and the plain version."""
     dev = "cuda"
-    seg_q = np.sort(rng.integers(0, 4, nq)) if seg_lane else None
-    seg_r = np.sort(rng.integers(0, 4, nr)) if seg_lane else None
-    q = packed_boxes(torch, rng, nq, n_attrs, dev, seg_q)
-    r = packed_boxes(torch, rng, nr, n_attrs, dev, seg_r)
+    nq, nr = q.shape[0], r.shape[0]
     got = rj.range_join_mask(q, r, n_attrs=n_attrs)
     want = plain_blocked(torch, ref.range_join_mask_ref, q, r, n_attrs)
     torch.cuda.synchronize()
     err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
     if not torch.equal(got, want):
-        raise AssertionError(f"range_join_mask differs from plain at {(nq, nr, n_attrs)}")
+        raise AssertionError(f"range_join_mask differs from plain at {label}")
     out = torch.empty((nq, nr), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     ms = cuda_ms(torch, lambda: checked(lib.rj_range_join_mask(
@@ -340,7 +351,6 @@ def check_mask_kernel(torch, rj, ref, lib, rng, nq, nr, n_attrs, seg_lane=False)
     ops = needed_compares(torch, q, r, n_attrs)
     bytes_moved = (nq + nr) * 2 * n_attrs * 4 + nq * nr
     b_ms, b_by = bound(bytes_moved, ops)
-    label = f"{nq}x{nr}x{n_attrs}" + ("+seg" if seg_lane else "")
     log(
         f"  range_join_mask {label}: equal pairs={int(got.sum())} "
         f"kernel={ms:.4f}ms wrapper={wrapper_ms:.4f}ms plain={plain_ms:.4f}ms "
@@ -350,26 +360,48 @@ def check_mask_kernel(torch, rj, ref, lib, rng, nq, nr, n_attrs, seg_lane=False)
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
 
 
-def check_tile_kernel(torch, rj, ref, lib, ops_mod, segs, bq, br):
+def synthetic_mask(torch, rj, ref, lib, rng, nq, nr, n_attrs, seg_lane=False):
+    seg_q = np.sort(rng.integers(0, 4, nq)) if seg_lane else None
+    seg_r = np.sort(rng.integers(0, 4, nr)) if seg_lane else None
+    q = packed_boxes(torch, rng, nq, n_attrs, "cuda", seg_q)
+    r = packed_boxes(torch, rng, nr, n_attrs, "cuda", seg_r)
+    label = f"{nq}x{nr}x{n_attrs}" + ("+seg" if seg_lane else "")
+    return check_mask_kernel(torch, rj, ref, lib, q, r, n_attrs, label)
+
+
+def check_tile_kernel(torch, rj, ref, lib, ops_mod, segs, n_attrs, bq, br, name):
+    """Hold ``range_join_tile_masks`` on the block-diagonal schedule of
+    ``segs`` at ``bq`` x ``br`` against its plain version (exact) and time
+    the kernel, the wrapper, the plain version and the whole pair pipeline
+    (``segmented_range_join_pairs``: pack, upload, launch, extraction)."""
     dev = "cuda"
-    n_attrs = max(s[0].shape[1] for s in segs)
     sched = ops_mod._blockdiag_schedule(segs, n_attrs, bq, br)
     q = torch.from_numpy(sched.q).to(dev)
     r = torch.from_numpy(sched.r).to(dev)
-    tq = torch.from_numpy(sched.tile_q.astype(np.int32)).to(dev)
-    tr = torch.from_numpy(sched.tile_r.astype(np.int32)).to(dev)
+    # the wrapper takes the schedule on the host; the raw launcher and the
+    # plain version read it on the card
+    tq_host = torch.from_numpy(sched.tile_q.astype(np.int32))
+    tr_host = torch.from_numpy(sched.tile_r.astype(np.int32))
+    tq, tr = tq_host.to(dev), tr_host.to(dev)
 
     def kernel():
-        return rj.range_join_tile_masks(q, r, tq, tr, n_attrs=n_attrs, block_q=bq, block_r=br)
+        return rj.range_join_tile_masks(
+            q, r, tq_host, tr_host, n_attrs=n_attrs, block_q=bq, block_r=br
+        )
 
     def plain():
         return ref.range_join_tile_masks_ref(q, r, tq, tr, n_attrs, bq, br)
+
+    def pairs():
+        return ops_mod.segmented_range_join_pairs(
+            segs, block_q=bq, block_r=br, device=dev, layout="blockdiag"
+        )
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err = int((got.int() - want.int()).abs().max())
     if not torch.equal(got, want):
-        raise AssertionError(f"range_join_tile_masks differs from plain at {bq}x{br}")
+        raise AssertionError(f"range_join_tile_masks differs from plain at {name} {bq}x{br}")
     n_tiles = int(tq.shape[0])
     out = torch.empty((n_tiles, bq, br), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
@@ -379,20 +411,66 @@ def check_tile_kernel(torch, rj, ref, lib, ops_mod, segs, bq, br):
     )))
     wrapper_ms = cuda_ms(torch, kernel)
     plain_ms = cuda_ms(torch, plain)
+    pair_times = cuda_samples(torch, pairs)
     q_blocks = q.reshape(-1, bq, 128)[tq.long()]
     r_blocks = r.reshape(-1, br, 128)[tr.long()]
     ops = needed_compares(torch, q_blocks, r_blocks, n_attrs)
     rows = sched.q.shape[0] + sched.r.shape[0]
     bytes_moved = rows * 2 * n_attrs * 4 + n_tiles * 8 + n_tiles * bq * br
     b_ms, b_by = bound(bytes_moved, ops)
-    label = f"{len(segs)}seg/{rows}rows/{n_tiles}tiles@{bq}x{br}"
+    label = f"{name} {len(segs)}seg/{rows}rows/{n_tiles}tiles@{bq}x{br}"
+    pairs_ms = float(np.median(pair_times))
     log(
         f"  range_join_tile_masks {label}: equal pairs={int(got.sum())} "
         f"kernel={ms:.4f}ms wrapper={wrapper_ms:.4f}ms plain={plain_ms:.4f}ms "
+        f"pipeline={pairs_ms:.4f}ms [{min(pair_times):.4f}-{max(pair_times):.4f}] "
         f"bound={b_ms:.4f}ms ({b_by}) bytes={bytes_moved} compares={ops}"
     )
     return {"shape": label, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+            "pipeline_ms": pairs_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err}
+
+
+class MainPathRecorder:
+    """Keeps the operands the main path hands the kernels, so that phase 6
+    holds each kernel against its plain version on exactly those inputs.
+
+    It wraps ``ops``' own references to the mask wrapper and to the
+    block-diagonal scheduler; the wrappers still count every launch, and
+    recording launches nothing.  ``phase`` tags what is recorded.
+    """
+
+    def __init__(self, ops_mod):
+        self.ops = ops_mod
+        self.phase = None
+        self.mask_shapes: dict = {}  # phase -> [(nq, nr, n_attrs)]
+        self.mask_first: dict = {}  # phase -> (q, r, n_attrs)
+        self.mask_largest: dict = {}  # phase -> (q, r, n_attrs)
+        self.frontiers: list = []  # (phase, segments, n_attrs, block_q, block_r)
+        self._orig = (ops_mod.range_join_mask, ops_mod._blockdiag_schedule)
+
+    def __enter__(self):
+        mask, schedule = self._orig
+
+        def record_mask(q, r, *, n_attrs):
+            ph = self.phase
+            self.mask_shapes.setdefault(ph, []).append((q.shape[0], r.shape[0], n_attrs))
+            self.mask_first.setdefault(ph, (q, r, n_attrs))
+            big = self.mask_largest.get(ph)
+            if big is None or q.shape[0] * r.shape[0] > big[0].shape[0] * big[1].shape[0]:
+                self.mask_largest[ph] = (q, r, n_attrs)
+            return mask(q, r, n_attrs=n_attrs)
+
+        def record_schedule(segments, n_attrs, block_q, block_r):
+            self.frontiers.append((self.phase, segments, n_attrs, block_q, block_r))
+            return schedule(segments, n_attrs, block_q, block_r)
+
+        self.ops.range_join_mask = record_mask
+        self.ops._blockdiag_schedule = record_schedule
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.range_join_mask, self.ops._blockdiag_schedule = self._orig
 
 
 # --------------------------------------------------------------------------- #
@@ -404,24 +482,69 @@ def phase_kernels(torch, rj, ref, lib, ops_mod) -> dict:
     for nq in (255, 256, 257):
         for nr in (255, 256, 257):
             records["range_join_mask"].append(
-                check_mask_kernel(torch, rj, ref, lib, rng, nq, nr, 1)
+                synthetic_mask(torch, rj, ref, lib, rng, nq, nr, 1)
             )
     for shape in ((1, 1, 3), (200, 20_000, 2), (3000, 20_000, 2), (20_000, 20_000, 4),
                   (2000, 3000, 64)):
         records["range_join_mask"].append(
-            check_mask_kernel(torch, rj, ref, lib, rng, *shape)
+            synthetic_mask(torch, rj, ref, lib, rng, *shape)
         )
     records["range_join_mask"].append(
-        check_mask_kernel(torch, rj, ref, lib, rng, 2000, 3000, 64, seg_lane=True)
+        synthetic_mask(torch, rj, ref, lib, rng, 2000, 3000, 64, seg_lane=True)
     )
     # the block-diagonal layout on the accel ablation's ragged frontier:
     # 24 segments of 96-224 rows a side (~7,800 rows), 2 attributes
     segs = ragged_frontier(24, 96, 224, n_attrs=2, seed=11)
     for g in (64, 128, 256):
         records["range_join_tile_masks"].append(
-            check_tile_kernel(torch, rj, ref, lib, ops_mod, segs, g, g)
+            check_tile_kernel(torch, rj, ref, lib, ops_mod, segs, 2, g, g, "ragged")
         )
     return records
+
+
+def phase_main_operands(torch, rj, ref, lib, ops_mod, seen) -> tuple[dict, dict]:
+    """Each kernel against its plain version on the operands the main path
+    gave it: phase 3's largest mask and phase 5's first, and every phase 4
+    frontier at the geometry it ran, the first one also at each size of
+    TILE_GEOMETRIES, twice.  Returns, per kernel, the record that stands
+    for the main path (phase 5's mask, phase 4's first frontier) and all
+    records."""
+    records = {"range_join_mask": [], "range_join_tile_masks": []}
+    main = {}
+    shapes = seen.mask_shapes.get(3, [])
+    if shapes:
+        cells = sorted(nq * nr for nq, nr, _ in shapes)
+        log(f"  phase 3 mask launches: {len(shapes)}, nq*nr median "
+            f"{cells[len(cells) // 2]}, max {cells[-1]}")
+        q, r, a = seen.mask_largest[3]
+        records["range_join_mask"].append(check_mask_kernel(
+            torch, rj, ref, lib, q, r, a, f"phase3-largest {q.shape[0]}x{r.shape[0]}x{a}"
+        ))
+    if 5 not in seen.mask_first:
+        raise AssertionError("phase 5 launched no range_join_mask")
+    q, r, a = seen.mask_first[5]
+    main["range_join_mask"] = check_mask_kernel(
+        torch, rj, ref, lib, q, r, a, f"phase5 {q.shape[0]}x{r.shape[0]}x{a}"
+    )
+    records["range_join_mask"].append(main["range_join_mask"])
+    fronts = [f for f in seen.frontiers if f[0] == 4]
+    if not fronts:
+        raise AssertionError("phase 4 launched no block-diagonal frontier")
+    for i, (_, segs, n_attrs, bq, br) in enumerate(fronts):
+        rec = check_tile_kernel(
+            torch, rj, ref, lib, ops_mod, segs, n_attrs, bq, br, f"phase4-wave{i}"
+        )
+        records["range_join_tile_masks"].append(rec)
+        main.setdefault("range_join_tile_masks", rec)
+    # the sweep runs twice, the second time in reverse order, so a size's
+    # place in the run cannot pass for its own cost
+    _, segs, n_attrs, _, _ = fronts[0]
+    for sweep, order in (("pass1", TILE_GEOMETRIES), ("pass2", TILE_GEOMETRIES[::-1])):
+        for g in order:
+            records["range_join_tile_masks"].append(check_tile_kernel(
+                torch, rj, ref, lib, ops_mod, segs, n_attrs, *g, f"phase4-wave0 {sweep}"
+            ))
+    return main, records
 
 
 def phase_fig89(core, C, sizes, device) -> None:
@@ -578,18 +701,22 @@ def main() -> int:
     # the main path: counters count only the launches of phases 3-5
     rj.range_join_mask.launches = 0
     rj.range_join_tile_masks.launches = 0
-    run_phase(
-        torch, rj, "3 fig8/9 ingest+query",
-        lambda: phase_fig89(core, C, (256, 20_000, 128, 6, 40_000), "cuda"),
-    )
-    run_phase(
-        torch, rj, "4 accel DAG frontiers",
-        lambda: phase_accel(core, (32, 31), 20, 2, 330, "cuda"),
-    )
-    run_phase(
-        torch, rj, "5 per-hop dense route",
-        lambda: phase_perhop_dense(core, 20_000, 16, 200, "cuda"),
-    )
+    with MainPathRecorder(ops_mod) as seen:
+        seen.phase = 3
+        run_phase(
+            torch, rj, "3 fig8/9 ingest+query",
+            lambda: phase_fig89(core, C, (256, 20_000, 128, 6, 40_000), "cuda"),
+        )
+        seen.phase = 4
+        run_phase(
+            torch, rj, "4 accel DAG frontiers",
+            lambda: phase_accel(core, (32, 31), 20, 2, 330, "cuda"),
+        )
+        seen.phase = 5
+        run_phase(
+            torch, rj, "5 per-hop dense route",
+            lambda: phase_perhop_dense(core, 20_000, 16, 200, "cuda"),
+        )
     launches = {
         "range_join_mask": rj.range_join_mask.launches,
         "range_join_tile_masks": rj.range_join_tile_masks.launches,
@@ -599,23 +726,21 @@ def main() -> int:
             raise AssertionError(f"{name} never launched on the main path")
     log(f"main-path launches: {launches}")
 
-    # per kernel, the numbers at the shape the main path gives it: the
-    # per-hop dense join of phase 5 (200 boxes x 20,000 rows x 2 attributes)
-    # and the 24-segment frontier's block-diagonal launch at 128x128
-    picks = {
-        "range_join_mask": lambda label: label == "200x20000x2",
-        "range_join_tile_masks": lambda label: label.endswith("@128x128"),
-    }
+    main_recs, main_records = run_phase(
+        torch, rj, "6 kernels vs plain on the main path's operands",
+        lambda: phase_main_operands(torch, rj, ref, lib, ops_mod, seen),
+    )
     kernels = []
-    for name, pick in picks.items():
-        rec = next(r for r in records[name] if pick(r["shape"]))
+    for name, rec in main_recs.items():
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": KERNEL_SOURCE,
             "replaces": REPLACES[name],
             "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in records[name]),
+            "max_abs_err": max(
+                r["max_abs_err"] for r in records[name] + main_records[name]
+            ),
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"],

@@ -64,7 +64,6 @@ import numpy as np
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.autotune import (
-    CANDIDATE_TWIN_CELLS,
     DEFAULT_GEOMETRY,
     DEFAULT_TWIN_CELLS,
     GeometryTuner,
@@ -638,11 +637,11 @@ class JoinRequest:
     path: str = "auto"
 
 
-# autotuning thresholds: frontiers below these run the default geometry —
-# measuring candidates costs extra dispatches, which only amortize when the
-# workload itself is big enough to show a geometry's effect
-_TUNE_MIN_ROWS = 2048  # kernel path: packed q+r rows across the frontier
-_TWIN_TUNE_MIN_CELLS = 1 << 22  # twin: mask cells of the largest segment
+# twin autotuning threshold: segments below it run the default mask-block
+# budget — measuring candidates costs extra dispatches, which only amortize
+# when the workload itself is big enough to show a budget's effect.  The
+# kernel path is not tuned (see DEFAULT_GEOMETRY).
+_TWIN_TUNE_MIN_CELLS = 1 << 22  # mask cells of the largest segment
 
 
 def _twin_pairs(
@@ -748,16 +747,16 @@ class BatchedJoinExecutor:
     occupancy, and the tile schedule (``batch_tiles_visited`` vs the
     cross-product tiles the block-diagonal layout ``batch_tiles_skipped``).
 
-    Launch geometry comes from a :class:`~repro_torch.kernels.autotune.
-    GeometryTuner` (``tuner``; the store's persisted table when the planner
-    creates the executor): on the first big frontier of a new (backend,
-    shape-bucket) combination the candidates are measured in place and the
-    winner cached — ``(block_q, block_r)`` tiles for the kernel path, the
-    mask-block cell budget for the twin.  ``engine`` pins the dense engine
-    for tests/benchmarks: ``"kernel"`` forces the segmented kernel path
-    (the kernels' plain PyTorch versions on ``device="cpu"``), ``"twin"``
-    the numpy path, ``None`` picks by device.  ``device`` defaults to
-    ``"cuda"`` and raises when CUDA is not available.
+    The kernel path launches at the fixed ``DEFAULT_GEOMETRY`` tiles.  The
+    twin's mask-block cell budget comes from a :class:`~repro_torch.kernels.
+    autotune.GeometryTuner` (``tuner``; the store's table when the planner
+    creates the executor): on the first big segment of a new shape bucket
+    the candidates are measured in place and the winner cached.
+    ``engine`` pins the dense engine for tests/benchmarks: ``"kernel"``
+    forces the segmented kernel path (the kernels' plain PyTorch versions
+    on ``device="cpu"``), ``"twin"`` the numpy path, ``None`` picks by
+    device.  ``device`` defaults to ``"cuda"`` and raises when CUDA is not
+    available.
     """
 
     def __init__(
@@ -785,8 +784,8 @@ class BatchedJoinExecutor:
         # pair cells) over dense dispatches — the planner's batched-route
         # discount scales by this instead of assuming perfect packing
         self._tile_waste = 1.0
-        # most recent launch geometry per engine family, for plan notes
-        self._last_geometry: dict[str, tuple[int, ...]] = {}
+        # the twin's most recent mask-block budget, for plan notes
+        self._twin_geometry: tuple[int, ...] = DEFAULT_TWIN_CELLS
 
     @property
     def measured_waste(self) -> float:
@@ -804,12 +803,12 @@ class BatchedJoinExecutor:
 
         ``256x256``-style tile shapes for the kernel path (``backend ==
         "cuda"``), the twin's mask-block budget (``4m`` cells) otherwise —
-        the most recently used geometry, or the default before any dispatch.
+        the most recently used budget, or the default before any dispatch.
         """
         if backend == "cuda":
-            bq, br = self._last_geometry.get("kernel", DEFAULT_GEOMETRY)
+            bq, br = DEFAULT_GEOMETRY
             return f"{bq}x{br}"
-        (cells,) = self._last_geometry.get("np", DEFAULT_TWIN_CELLS)
+        (cells,) = self._twin_geometry
         return f"{cells >> 20}m" if cells >= 1 << 20 else f"{cells >> 10}k"
 
     def _workers(self, width: int):
@@ -905,38 +904,12 @@ class BatchedJoinExecutor:
             ]
             shapes = [(s[0].shape[0], s[2].shape[0], s[0].shape[1]) for s in segs]
             backend = device.type  # "cuda" kernels or "cpu" plain versions
-            bucket = shape_bucket(shapes)
-            geom = self._tuner.lookup(backend, bucket)
-            result = None
-            if geom is None:
-                if sum(nq + nr for nq, nr, _ in shapes) >= _TUNE_MIN_ROWS:
-                    # first big frontier of this shape: measure the
-                    # candidates on it (the winner's run is kept, so the
-                    # tuning dispatch does the real work) and persist the
-                    # geometry via the store's autotune table
-                    geom, result = self._tuner.pick(
-                        backend,
-                        bucket,
-                        runner=lambda g: ops.segmented_range_join_pairs(
-                            segs, block_q=g[0], block_r=g[1], device=device,
-                        ),
-                    )
-                    if self._metrics is not None:
-                        self._metrics.inc(
-                            "autotune_decisions",
-                            backend=backend,
-                            bucket=str(bucket),
-                        )
-                else:
-                    geom = DEFAULT_GEOMETRY
-            if result is None:
-                result = ops.segmented_range_join_pairs(
-                    segs, block_q=geom[0], block_r=geom[1], device=device
-                )
-            seg_pairs, info = result
+            geom = DEFAULT_GEOMETRY
+            seg_pairs, info = ops.segmented_range_join_pairs(
+                segs, block_q=geom[0], block_r=geom[1], device=device
+            )
             for k, (ui, ri) in zip(kernel_idx, seg_pairs):
                 finalize(k, ui, ri)
-            self._last_geometry["kernel"] = tuple(geom)
             self._stats("kernel_launches", info["launches"])
             self._stats("joins_packed", len(kernel_idx))
             self._stats("batch_rows", info["rows"])
@@ -1003,9 +976,6 @@ class BatchedJoinExecutor:
                     runner=lambda g: _twin_pairs(
                         u_lo, u_hi, rl_b, rh_b, None, block_cells=g[0]
                     ),
-                    candidates=CANDIDATE_TWIN_CELLS,
-                    default=DEFAULT_TWIN_CELLS,
-                    warmup=False,  # pure numpy: nothing to compile
                 )
                 if self._metrics is not None:
                     self._metrics.inc(
@@ -1018,7 +988,7 @@ class BatchedJoinExecutor:
             else:
                 twin_geom = DEFAULT_TWIN_CELLS
         block_cells = twin_geom[0]
-        self._last_geometry["np"] = tuple(twin_geom)
+        self._twin_geometry = tuple(twin_geom)
         todo = [k for k in rest if k not in pairs]
 
         def eval_segments(chunk: list[int]) -> None:

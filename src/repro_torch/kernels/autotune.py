@@ -1,23 +1,23 @@
-"""Launch-geometry autotuner for the batched dense-join engines.
+"""Launch-geometry autotuner for the batched numpy twin.
 
-The port of ``repro.kernels.autotune``.  The segmented kernels take a
-``(block_q, block_r)`` launch geometry and the blocked-numpy twin a
-mask-block budget (cells per row block); the best values depend on the
-backend (``"cuda"`` kernels vs the ``"cpu"`` plain versions vs numpy) and on
-the
-*shape* of the frontier being joined (many tiny segments want small tiles,
-few big segments want big ones).  :class:`GeometryTuner` measures candidate
-geometries the first time a (backend, frontier-shape bucket) combination is
-seen — Triton-style: each candidate runs the real workload once after a
-warmup, the winner's result is kept so the measuring dispatch does the real
-work — and caches the winner in a small table that the catalog persists as
-an ``autotune.json`` sidecar next to the manifest.
+The port of ``repro.kernels.autotune``.  The blocked-numpy twin takes a
+mask-block budget (cells per row block) whose best value depends on the
+*shape* of the frontier being joined.  :class:`GeometryTuner` measures
+candidate budgets the first time a (backend, frontier-shape bucket)
+combination is seen — Triton-style: each candidate runs the real workload
+once, the winner's result is kept so the measuring dispatch does the real
+work — and caches the winner in a small table.
+
+The segmented CUDA kernels are not tuned: they launch at
+:data:`DEFAULT_GEOMETRY`.  The tile kernel evaluates 32 q rows x 128 r rows
+per thread block whatever the tile, so ``(block_q, block_r)`` changes only
+the padding and the tile count, and ``chip_smoke.py`` (phase 6) times the
+alternatives on the card's main-path frontiers.
 
 Backends are opaque strings and workloads run through caller-supplied
 runners, so ``repro_torch.core`` imports this without touching the kernel
-stack.  Entries are keyed by backend, which is what invalidates the cache
-when a store moves machines — a table tuned by the reference under ``tpu``
-or ``interpret`` never answers a ``cuda`` lookup.
+stack.  Entries are keyed by backend, so a table tuned elsewhere never
+answers here.
 """
 
 from __future__ import annotations
@@ -30,23 +30,13 @@ __all__ = [
     "GeometryTuner",
     "shape_bucket",
     "DEFAULT_GEOMETRY",
-    "CANDIDATE_GEOMETRIES",
     "DEFAULT_TWIN_CELLS",
     "CANDIDATE_TWIN_CELLS",
 ]
 
-# kernel-launch geometry: (block_q, block_r) tile shapes of the
-# block-diagonal schedule.  The CUDA tile kernel evaluates 32 q rows x 128
-# r rows per thread block, so multiples of those fill its blocks; smaller
-# tiles pad less on ragged frontiers, larger ones cut the schedule length.
+# kernel-launch geometry: the (block_q, block_r) tile of the block-diagonal
+# schedule, a multiple of the tile kernel's 32 x 128 thread block
 DEFAULT_GEOMETRY = (256, 256)
-CANDIDATE_GEOMETRIES = (
-    (64, 128),
-    (128, 128),
-    (128, 256),
-    (256, 128),
-    (256, 256),
-)
 
 # numpy-twin geometry: mask cells evaluated per row block (the twin's only
 # launch knob — trades scratch-buffer locality against ufunc call overhead)
@@ -83,9 +73,8 @@ class GeometryTuner:
 
     ``pick`` is the one-stop API: cached winner when known, otherwise (if a
     ``runner`` is supplied) measure every candidate on the real workload and
-    cache the winner.  Geometries are opaque int tuples — ``(block_q,
-    block_r)`` for the kernels, ``(block_cells,)`` for the numpy twin — so
-    one table serves both engines.
+    cache the winner.  Geometries are opaque int tuples (``(block_cells,)``
+    for the numpy twin).
     """
 
     def __init__(self) -> None:
@@ -127,18 +116,16 @@ class GeometryTuner:
         backend: str,
         bucket: str,
         runner: "Callable[[tuple[int, ...]], object] | None" = None,
-        candidates: "Iterable[tuple[int, ...]]" = CANDIDATE_GEOMETRIES,
-        default: "tuple[int, ...]" = DEFAULT_GEOMETRY,
-        warmup: bool = True,
+        candidates: "Iterable[tuple[int, ...]]" = CANDIDATE_TWIN_CELLS,
+        default: "tuple[int, ...]" = DEFAULT_TWIN_CELLS,
     ) -> "tuple[tuple[int, ...], object | None]":
         """Winning geometry for (backend, bucket), measuring on a miss.
 
         Returns ``(geometry, result)``: ``result`` is the winner's workload
         output when this call measured (so the tuning dispatch does the real
         work — no wasted evaluation), else ``None`` (cache hit, or no
-        ``runner`` to measure with → ``default``).  ``warmup=True`` runs
-        each candidate once untimed first so trace/compile cost never picks
-        the winner (pointless for pure-numpy runners — pass ``False``).
+        ``runner`` to measure with → ``default``).  Each candidate runs
+        once: the runners are pure numpy, with nothing to compile first.
         """
         cached = self.lookup(backend, bucket)
         if cached is not None:
@@ -151,8 +138,6 @@ class GeometryTuner:
         measured: dict[str, float] = {}
         for geom in candidates:
             geom = tuple(int(x) for x in geom)
-            if warmup:
-                runner(geom)
             t0 = time.perf_counter()
             result = runner(geom)
             dt = time.perf_counter() - t0

@@ -231,10 +231,11 @@ def _blockdiag_pairs(
     masks = range_join_tile_masks(
         torch.from_numpy(sched.q).to(device),
         torch.from_numpy(sched.r).to(device),
+        # the schedule stays on the host: the wrapper checks and uploads it
         # dslint: ignore[int32-cast] block indices, bounded by row count/block
-        torch.from_numpy(tile_q.astype(np.int32)).to(device),
+        torch.from_numpy(tile_q.astype(np.int32)),
         # dslint: ignore[int32-cast] block indices, bounded by row count/block
-        torch.from_numpy(tile_r.astype(np.int32)).to(device),
+        torch.from_numpy(tile_r.astype(np.int32)),
         n_attrs=n_attrs,
         block_q=block_q,
         block_r=block_r,

@@ -128,6 +128,10 @@ def range_join_tile_masks(
     ``[tile_q[t]*block_q, ...)`` against r rows ``[tile_r[t]*block_r, ...)``
     and lands in ``out[t]``: ``[T, block_q, block_r]`` uint8.  Tiles not in
     the schedule are never computed.
+
+    The schedule lies on the host, where it was built: its bounds are
+    checked there, and a CUDA launch uploads it with the operands' stream,
+    so the check never waits on the device.
     """
     check_lane_capacity(n_attrs)
     device = _check_packed(q_packed, r_packed)
@@ -138,32 +142,31 @@ def range_join_tile_masks(
             f"(got {nq} q rows / {nr} r rows for {block_q}x{block_r} tiles)"
         )
     for t in (tile_q, tile_r):
-        if t.dim() != 1 or t.dtype != torch.int32 or t.device != device:
-            raise ValueError(
-                "tile schedules must be 1-D int32 on the operands' device"
-            )
+        if t.dim() != 1 or t.dtype != torch.int32 or t.device.type != "cpu":
+            raise ValueError("tile schedules must be 1-D int32 host tensors")
     if tile_q.shape != tile_r.shape:
         raise ValueError("tile_q and tile_r differ in length")
     n_tiles = tile_q.shape[0]
-    if n_tiles:
-        lo_q, hi_q, lo_r, hi_r = torch.stack(
-            [tile_q.min(), tile_q.max(), tile_r.min(), tile_r.max()]
-        ).tolist()
-        if lo_q < 0 or lo_r < 0 or hi_q >= nq // block_q or hi_r >= nr // block_r:
-            raise ValueError("tile schedule indexes blocks outside the operands")
+    if n_tiles and (
+        int(tile_q.min()) < 0
+        or int(tile_r.min()) < 0
+        or int(tile_q.max()) >= nq // block_q
+        or int(tile_r.max()) >= nr // block_r
+    ):
+        raise ValueError("tile schedule indexes blocks outside the operands")
     if device.type == "cpu":
         return range_join_tile_masks_ref(
             q_packed, r_packed, tile_q, tile_r, n_attrs, block_q, block_r
         )
     out = torch.empty((n_tiles, block_q, block_r), dtype=torch.uint8, device=device)
     if n_tiles:
-        tile_q = tile_q.contiguous()
-        tile_r = tile_r.contiguous()
+        # one upload for both halves of the schedule
+        sched = torch.stack([tile_q, tile_r]).to(device)
         lib = _build.load()
         with torch.cuda.device(device):
             err = lib.rj_range_join_tile_masks(
                 q_packed.data_ptr(), r_packed.data_ptr(),
-                tile_q.data_ptr(), tile_r.data_ptr(), out.data_ptr(),
+                sched[0].data_ptr(), sched[1].data_ptr(), out.data_ptr(),
                 n_tiles, block_q, block_r, n_attrs, _stream(device),
             )
         _build.check_launch(err, "range_join_tile_masks")

@@ -60,13 +60,21 @@ def test_tile_kernel_equals_plain(cuda_device, bq, br):
     rng = np.random.default_rng(SEED + bq)
     q = torch.from_numpy(_packed(rng, 3 * bq, 2, coord=40)).to(cuda_device)
     r = torch.from_numpy(_packed(rng, 5 * br, 2, coord=40)).to(cuda_device)
-    tq = torch.from_numpy(rng.integers(0, 3, 11).astype(np.int32)).to(cuda_device)
-    tr = torch.from_numpy(rng.integers(0, 5, 11).astype(np.int32)).to(cuda_device)
+    # the wrapper takes the schedule on the host; the plain version indexes
+    # on the card
+    tq = torch.from_numpy(rng.integers(0, 3, 11).astype(np.int32))
+    tr = torch.from_numpy(rng.integers(0, 5, 11).astype(np.int32))
     before = rj.range_join_tile_masks.launches
     got = rj.range_join_tile_masks(q, r, tq, tr, n_attrs=2, block_q=bq, block_r=br)
     torch.cuda.synchronize()
     assert rj.range_join_tile_masks.launches == before + 1
-    assert torch.equal(got, ref.range_join_tile_masks_ref(q, r, tq, tr, 2, bq, br))
+    want = ref.range_join_tile_masks_ref(
+        q, r, tq.to(cuda_device), tr.to(cuda_device), 2, bq, br
+    )
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="host"):
+        rj.range_join_tile_masks(q, r, tq.to(cuda_device), tr.to(cuda_device),
+                                 n_attrs=2, block_q=bq, block_r=br)
 
 
 @pytest.mark.parametrize("layout", ["dense", "blockdiag"])

@@ -129,6 +129,15 @@ def test_tile_masks_reject_bad_schedules():
         trj.range_join_tile_masks(
             q, q, t + 2, t, n_attrs=1, block_q=32, block_r=32
         )
+    with pytest.raises(ValueError, match="outside"):
+        trj.range_join_tile_masks(
+            q, q, t, t - 1, n_attrs=1, block_q=32, block_r=32
+        )
+    # the schedule is checked where it was built, on the host
+    with pytest.raises(ValueError, match="host"):
+        trj.range_join_tile_masks(
+            q, q, t.to("meta"), t, n_attrs=1, block_q=32, block_r=32
+        )
     empty = torch.zeros(0, dtype=torch.int32)
     out = trj.range_join_tile_masks(q, q, empty, empty, n_attrs=1, block_q=32, block_r=32)
     assert tuple(out.shape) == (0, 32, 32)
