@@ -22,15 +22,30 @@ Phases:
    compressible 20,000-row table, equal to ``path="index"``;
 6. phase 2's checks and timings again, on the operands phases 3-5 handed
    the kernels (recorded as they ran), and for each phase 4 frontier the
-   time of the whole pair pipeline (``pipeline``) at each tile size.
+   time of the whole pair pipeline (``pipeline``) at each tile size;
+7. the durable store at the same sizes: ``DSLog.open`` (WAL, group commit,
+   writer lease) ingests phase 3's workflows with reuse on and answers
+   phase 3's queries equal to phase 3's; a checkpointed close and a cold
+   reopen; a crash (``close(checkpoint=False)``) recovered by
+   ``DSLog.load``'s WAL replay; phase 4's accel DAG on a durable store,
+   queried until a view is materialized and hit and an answer is served
+   from the cache, equal to phase 4's store;
+8. ``run_boundaries``: ``ops.run_boundaries`` on the rows ProvRC's first
+   step-1 pass sorted for each phase 3 workflow's largest relation
+   (recorded as phase 3 ran; on those point rows the flags equal
+   ``coalesce_1d``'s run starts) and on the 4,194,304 rows of a one-to-one
+   relation over a 2048 x 2048 array; then the kernel against its plain
+   version on made-up tables, edge rows and those operands, timed.
 
-Phases 3-5 are the port's main path: both kernels' launch counters are
-zeroed before phase 3 and must have risen after phase 5; the JSON line
-reports phase 6's numbers for the main path's own operands.  Any failure
-raises and exits non-zero.  Without CUDA, or without the port beside this
-script, it exits non-zero and prints no result.  The last three stdout
-lines are the card's name and power limit, a JSON object of per-kernel
-numbers, and ``{"ok": true, "device": {...}}``.
+Phases 3-5 are the port's main path, phase 7 the store's and phase 8's
+``ops.run_boundaries`` calls the run-boundary kernel's: the launch counters
+are zeroed before each of those and read after it, and each path's kernels
+must have launched.  The JSON line reports phase 6's and phase 8's numbers
+on the main paths' own operands.  Any failure raises and exits non-zero.
+Without CUDA, or without the port beside this script, it exits non-zero
+and prints no result.  The last three stdout lines are the card's name and
+power limit, a JSON object of per-kernel numbers, and
+``{"ok": true, "device": {...}}``.
 
 The workflow constructors and the raw-join oracle are this script's own copies
 of ``benchmarks/fig89_query.py``'s (lines 57-167, 247-255, 810-870), so it
@@ -40,8 +55,10 @@ needs nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -59,11 +76,26 @@ TIMING_REPS = 9
 # port launches at DEFAULT_GEOMETRY (256x256); these are the alternatives
 TILE_GEOMETRIES = ((64, 64), (64, 128), (128, 128), (128, 256), (256, 128), (256, 256))
 
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/range_join.cu"
+KERNEL_SOURCES = {
+    "range_join_mask": "src/repro_torch/kernels/csrc/range_join.cu",
+    "range_join_tile_masks": "src/repro_torch/kernels/csrc/range_join.cu",
+    "run_boundaries_packed": "src/repro_torch/kernels/csrc/run_boundary.cu",
+}
 REPLACES = {
     "range_join_mask": "src/repro/kernels/range_join.py:118",
     "range_join_tile_masks": "src/repro/kernels/range_join.py:198",
+    "run_boundaries_packed": "src/repro/kernels/run_boundary.py:86",
 }
+SELECTIVITIES = (0.001, 0.01, 0.1)
+# phase 8: made-up tables (rows x key columns), and the 2048 x 2048 table
+RB_ROWS = (1, 255, 256, 257, 1024, 1025, 1 << 20)
+RB_KEYS = (0, 1, 4, 8, 126)
+RB_SIDE = 2048
+# phase 3's workflow sizes (image side, relational n, resnet side, random
+# pipelines, random cells) and phase 4's accel DAG (shape, branches, hops,
+# query cells)
+FIG89_SIZES = (256, 20_000, 128, 6, 40_000)
+ACCEL = ((32, 31), 20, 2, 330)
 
 
 def log(msg: str) -> None:
@@ -206,12 +238,11 @@ def permutation_lineage(LineageRelation, shape, rng):
     return LineageRelation(shape, shape, cells, cells[perm]).canonical()
 
 
-def build_accel_dag(DSLog, LineageRelation, shape, branches, hops, device, seed=0):
+def build_accel_dag(log_, LineageRelation, shape, branches, hops, seed=0):
     """``src`` fans out to ``branches`` chains of ``hops`` random bijections
-    that all fan back into ``out``; returns the store and each branch's
-    relations (for the oracle)."""
+    that all fan back into ``out``, in the store ``log_``; returns each
+    branch's relations (for the oracle)."""
     rng = np.random.default_rng(seed)
-    log_ = DSLog(store_forward=True, device=device)
     log_.define_array("src", shape)
     log_.define_array("out", shape)
     chains = []
@@ -228,7 +259,7 @@ def build_accel_dag(DSLog, LineageRelation, shape, branches, hops, device, seed=
         log_.add_lineage(prev, "out", rel)
         chain.append(rel)
         chains.append(chain)
-    return log_, chains
+    return chains
 
 
 def ragged_frontier(k, row_lo, row_hi, n_attrs, seed=0):
@@ -437,20 +468,28 @@ class MainPathRecorder:
 
     It wraps ``ops``' own references to the mask wrapper and to the
     block-diagonal scheduler; the wrappers still count every launch, and
-    recording launches nothing.  ``phase`` tags what is recorded.
+    recording launches nothing.  ``phase`` tags what is recorded.  It also
+    keeps, per workflow (``workflow``, set while phase 3 ingests one), the
+    inputs of ProvRC's first step-1 pass on its largest relation
+    (``provrc._step1_pass``, ``provrc.py:142-143``): phase 8 runs the
+    run-boundary kernel on the rows that pass sorts.
     """
 
-    def __init__(self, ops_mod):
+    def __init__(self, ops_mod, provrc_mod):
         self.ops = ops_mod
+        self.provrc = provrc_mod
         self.phase = None
+        self.workflow = None
         self.mask_shapes: dict = {}  # phase -> [(nq, nr, n_attrs)]
         self.mask_first: dict = {}  # phase -> (q, r, n_attrs)
         self.mask_largest: dict = {}  # phase -> (q, r, n_attrs)
         self.frontiers: list = []  # (phase, segments, n_attrs, block_q, block_r)
-        self._orig = (ops_mod.range_join_mask, ops_mod._blockdiag_schedule)
+        self.step1: dict = {}  # workflow -> _step1_pass arguments
+        self._orig = (ops_mod.range_join_mask, ops_mod._blockdiag_schedule,
+                      provrc_mod._step1_pass)
 
     def __enter__(self):
-        mask, schedule = self._orig
+        mask, schedule, step1 = self._orig
 
         def record_mask(q, r, *, n_attrs):
             ph = self.phase
@@ -465,12 +504,24 @@ class MainPathRecorder:
             self.frontiers.append((self.phase, segments, n_attrs, block_q, block_r))
             return schedule(segments, n_attrs, block_q, block_r)
 
+        def record_step1(key_lo, key_hi, val_lo, val_hi, val_ref, i):
+            # compress() runs its passes from the last value attribute down:
+            # i == m - 1 is the first, on the relation's unmerged rows
+            wf = self.workflow
+            if wf is not None and i == val_lo.shape[1] - 1:
+                best = self.step1.get(wf)
+                if best is None or val_lo.shape[0] > best[2].shape[0]:
+                    self.step1[wf] = (key_lo, key_hi, val_lo, val_hi, val_ref, i)
+            return step1(key_lo, key_hi, val_lo, val_hi, val_ref, i)
+
         self.ops.range_join_mask = record_mask
         self.ops._blockdiag_schedule = record_schedule
+        self.provrc._step1_pass = record_step1
         return self
 
     def __exit__(self, *exc):
-        self.ops.range_join_mask, self.ops._blockdiag_schedule = self._orig
+        (self.ops.range_join_mask, self.ops._blockdiag_schedule,
+         self.provrc._step1_pass) = self._orig
 
 
 # --------------------------------------------------------------------------- #
@@ -547,52 +598,95 @@ def phase_main_operands(torch, rj, ref, lib, ops_mod, seen) -> tuple[dict, dict]
     return main, records
 
 
-def phase_fig89(core, C, sizes, device) -> None:
+def register_workflow(store, wf_name, rels, reuse):
+    """Define the workflow's arrays and register its operations; returns
+    the array path."""
+    names = [f"{wf_name}_a0"]
+    store.define_array(names[0], rels[0].in_shape)
+    for k, rel in enumerate(rels):
+        names.append(f"{wf_name}_a{k + 1}")
+        store.define_array(names[k + 1], rel.out_shape)
+        store.register_operation(
+            f"{wf_name}_op{k}", [names[k]], [names[k + 1]],
+            capture=lambda r=rel: {(0, 0): r}, reuse=reuse,
+        )
+    return names
+
+
+def query_cells(in_shape, sel):
+    k = max(1, int(int(np.prod(in_shape)) * sel))
+    return np.stack(np.unravel_index(np.arange(k), in_shape), axis=1)
+
+
+def fig89_queries(store, wf_name, names, in_shape) -> tuple[dict, dict]:
+    """Phase 3's six path-form queries on one workflow: the answers and the
+    milliseconds of each, keyed ``(workflow, selectivity, merge)``."""
+    answers, ms = {}, {}
+    for sel in SELECTIVITIES:
+        cells = query_cells(in_shape, sel)
+        for merge in (True, False):
+            t1 = time.perf_counter()
+            answers[(wf_name, sel, merge)] = store.prov_query(names, cells, merge=merge)
+            ms[(wf_name, sel, merge)] = (time.perf_counter() - t1) * 1e3
+    return answers, ms
+
+
+def same_box(got, want) -> bool:
+    return (got.shape == want.shape and got.lo.tobytes() == want.lo.tobytes()
+            and got.hi.tobytes() == want.hi.tobytes())
+
+
+def check_answers(got: dict, want: dict, what: str) -> None:
+    for key, box in got.items():
+        if not same_box(box, want[key]):
+            raise AssertionError(f"{what}: answer {key} differs from phase 3's")
+
+
+def phase_fig89(core, C, sizes, device, seen) -> tuple[dict, float]:
+    """One in-memory store per workflow, answers checked against the
+    raw-join oracle; returns the answers and the summed ingest seconds."""
+    all_answers, ingest = {}, 0.0
     for wf_name, rels in fig89_workflows(C, *sizes):
         t0 = time.perf_counter()
         store = core.DSLog(store_forward=True, device=device)
-        names = [f"{wf_name}_a0"]
-        store.define_array(names[0], rels[0].in_shape)
-        for k, rel in enumerate(rels):
-            names.append(f"{wf_name}_a{k + 1}")
-            store.define_array(names[k + 1], rel.out_shape)
-            store.register_operation(
-                f"{wf_name}_op{k}", [names[k]], [names[k + 1]],
-                capture=lambda r=rel: {(0, 0): r}, reuse=False,
-            )
+        seen.workflow = wf_name
+        names = register_workflow(store, wf_name, rels, reuse=False)
+        seen.workflow = None
         t_ingest = time.perf_counter() - t0
-        in_shape = rels[0].in_shape
-        n_cells = int(np.prod(in_shape))
-        line = []
-        for sel in (0.001, 0.01, 0.1):
-            k = max(1, int(n_cells * sel))
-            cells = np.stack(np.unravel_index(np.arange(k), in_shape), axis=1)
-            want = forward_join_rows(rels, cells)
-            for merge in (True, False):
-                t1 = time.perf_counter()
-                res = store.prov_query(names, cells, merge=merge)
-                dt = time.perf_counter() - t1
-                got = box_flat_cells(res)
-                if not np.array_equal(got, want):
-                    raise AssertionError(
-                        f"{wf_name} sel={sel} merge={merge}: {got.size} cells "
-                        f"vs oracle {want.size}"
-                    )
-                line.append(f"{sel}/{'m' if merge else 'nm'}={dt * 1e3:.1f}ms")
+        ingest += t_ingest
+        answers, ms = fig89_queries(store, wf_name, names, rels[0].in_shape)
+        for (_, sel, merge), res in answers.items():
+            want = forward_join_rows(rels, query_cells(rels[0].in_shape, sel))
+            got = box_flat_cells(res)
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"{wf_name} sel={sel} merge={merge}: {got.size} cells "
+                    f"vs oracle {want.size}"
+                )
+        all_answers.update(answers)
+        line = [f"{sel}/{'m' if merge else 'nm'}={t:.1f}ms" for (_, sel, merge), t in ms.items()]
         log(
             f"  {wf_name:14s} ingest={t_ingest:.2f}s storage={store.storage_bytes()}B "
             + " ".join(line)
         )
+    return all_answers, ingest
 
 
-def phase_accel(core, shape, branches, hops, n_cells, device) -> None:
-    store, chains = build_accel_dag(
-        core.DSLog, core.LineageRelation, shape, branches, hops, device
-    )
+def accel_cells(shape, n_cells):
     rng = np.random.default_rng(7)
+    flat = rng.choice(int(np.prod(shape)), size=n_cells, replace=False)
+    return np.stack(np.unravel_index(flat, shape), axis=1)
+
+
+def phase_accel(core, shape, branches, hops, n_cells, device):
+    """Returns the store and its batched answer (phase 7 compares with
+    both)."""
+    store = core.DSLog(store_forward=True, device=device)
+    # the two engines answer the same query: keep the answer cache out of it
+    store.views.enabled = False
+    chains = build_accel_dag(store, core.LineageRelation, shape, branches, hops)
     n = int(np.prod(shape))
-    flat = rng.choice(n, size=n_cells, replace=False)
-    cells = np.stack(np.unravel_index(flat, shape), axis=1)
+    cells = accel_cells(shape, n_cells)
     t0 = time.perf_counter()
     want = store.prov_query("src", "out", cells, batched=False)
     t_perhop = time.perf_counter() - t0
@@ -627,6 +721,7 @@ def phase_accel(core, shape, branches, hops, n_cells, device) -> None:
         f"{after['batch_tiles_skipped'] - before['batch_tiles_skipped']} "
         f"answer_rows={got.n_rows}"
     )
+    return store, got
 
 
 def phase_perhop_dense(core, n_rows, n_queries, boxes, device) -> None:
@@ -648,21 +743,353 @@ def phase_perhop_dense(core, n_rows, n_queries, boxes, device) -> None:
     )
 
 
-def run_phase(torch, rj, name, fn):
+def dir_bytes(root) -> int:
+    return sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root))
+
+
+def fsync_stats(store) -> tuple[int, float]:
+    """Count and p99 seconds of the store's WAL fsyncs."""
+    for row in store.metrics_snapshot()["histograms"]:
+        if row["name"] == "wal_fsync_seconds" and not row["labels"]:
+            return row["count"], row["p99"]
+    return 0, 0.0
+
+
+def run_fig89_queries(store, paths) -> tuple[dict, float]:
+    answers, total_ms = {}, 0.0
+    for wf_name, (names, in_shape) in paths.items():
+        got, ms = fig89_queries(store, wf_name, names, in_shape)
+        answers.update(got)
+        total_ms += sum(ms.values())
+    return answers, total_ms
+
+
+def phase_store(core, C, sizes, p3, accel, device, workdir) -> dict:
+    """The durable store at phase 3's and phase 4's sizes (see the module
+    doc, phase 7).  ``p3`` is phase 3's (answers, ingest seconds); ``accel``
+    phase 4's (store, answer, shape, branches, hops, n_cells)."""
+    p3_answers, p3_ingest = p3
+    flows = fig89_workflows(C, *sizes)
+    root = os.path.join(workdir, "fig89")
+    t0 = time.perf_counter()
+    store = core.DSLog.open(root, durability="group", device=device)
+    paths = {
+        wf: (register_workflow(store, wf, rels, reuse=None), rels[0].in_shape)
+        for wf, rels in flows
+    }
+    store.commit()
+    t_ingest = time.perf_counter() - t0
+    n_fsync, fsync_p99 = fsync_stats(store)
+    answers, first_ms = run_fig89_queries(store, paths)
+    check_answers(answers, p3_answers, "durable store")
+    t0 = time.perf_counter()
+    store.close()  # checkpoint: incremental save + log truncation
+    t_checkpoint = time.perf_counter() - t0
+    log(f"  ingest durable={t_ingest:.2f}s in-memory={p3_ingest:.2f}s "
+        f"fsyncs={n_fsync} fsync_p99={fsync_p99 * 1e3:.3f}ms "
+        f"queries={first_ms:.1f}ms checkpoint={t_checkpoint:.3f}s")
+
+    t0 = time.perf_counter()
+    store = core.DSLog.open(root, durability="group", device=device)
+    t_reopen = time.perf_counter() - t0
+    cold, cold_ms = run_fig89_queries(store, paths)
+    loaded = store.io_stats["tables_loaded"]
+    warm, warm_ms = run_fig89_queries(store, paths)
+    check_answers(cold, p3_answers, "reopened store (cold)")
+    check_answers(warm, p3_answers, "reopened store (warm)")
+    if loaded <= 0:
+        raise AssertionError("the reopened store loaded no table")
+    log(f"  reopen={t_reopen:.3f}s cold={cold_ms:.1f}ms warm={warm_ms:.1f}ms "
+        f"tables_loaded={loaded} (54 queries each)")
+
+    # one more workflow, then a crash: only the WAL holds it
+    extra, rels = random_workflow(C, 5, len(flows), sizes[4])
+    extra_path = register_workflow(store, extra, rels, reuse=None)
+    store.commit()
+    store.close(checkpoint=False)
+    t0 = time.perf_counter()
+    store = core.DSLog.load(root, device=device)
+    t_recover = time.perf_counter() - t0
+    replayed = dict(store.io_stats).get("wal_replayed", 0)
+    if replayed <= 0:
+        raise AssertionError("load() replayed no WAL record after the crash")
+    again, _ = run_fig89_queries(store, paths)
+    check_answers(again, p3_answers, "recovered store")
+    got, _ = fig89_queries(store, extra, extra_path, rels[0].in_shape)
+    for (_, sel, _), res in got.items():
+        want = forward_join_rows(rels, query_cells(rels[0].in_shape, sel))
+        if not np.array_equal(box_flat_cells(res), want):
+            raise AssertionError(f"recovered store: {extra} sel={sel} differs from the oracle")
+    disk = dir_bytes(root)
+    log(f"  crash+load={t_recover:.3f}s wal_replayed={replayed} "
+        f"bytes_on_disk={disk} storage_bytes={store.storage_bytes()}")
+
+    # phase 4's accel DAG, durable: its query, then a hot two-hop route
+    ref_store, ref_answer, shape, branches, hops, n_cells = accel
+    aroot = os.path.join(workdir, "accel")
+    astore = core.DSLog.open(aroot, durability="group", device=device)
+    build_accel_dag(astore, core.LineageRelation, shape, branches, hops)
+    astore.commit()
+    if not same_box(astore.prov_query("src", "out", accel_cells(shape, n_cells)), ref_answer):
+        raise AssertionError("durable accel DAG: answer differs from phase 4's")
+    route = ("src", "b0h1")
+    rng = np.random.default_rng(11)
+    n = int(np.prod(shape))
+
+    def route_query():
+        cells = np.stack(np.unravel_index(rng.choice(n, 32, replace=False), shape), axis=1)
+        t1 = time.perf_counter()
+        res = astore.prov_query(*route, cells)
+        dt = (time.perf_counter() - t1) * 1e3
+        if not same_box(res, ref_store.prov_query(*route, cells)):
+            raise AssertionError(f"durable accel DAG: route {route} differs from phase 4's")
+        return cells, res, dt
+
+    miss_ms = []
+    for _ in range(8):
+        _, _, dt = route_query()
+        miss_ms.append(dt)
+        if astore.io_stats["views_materialized"] >= 1 and astore.io_stats["view_hits"] >= 1:
+            break
+    hits = astore.io_stats["view_hits"]
+    cells, res, view_ms = route_query()
+    if astore.io_stats["view_hits"] <= hits:
+        raise AssertionError("durable accel DAG: the view was not hit")
+    t1 = time.perf_counter()
+    again = astore.prov_query(*route, cells)
+    cache_ms = (time.perf_counter() - t1) * 1e3
+    if not same_box(again, res) or astore.io_stats["cache_hits"] < 1:
+        raise AssertionError("durable accel DAG: the repeat was not served from the cache")
+    views = {k: astore.io_stats[k] for k in ("views_materialized", "view_hits", "cache_hits")}
+    astore.close()
+    log(f"  accel durable: route {route[0]}->{route[1]} planned "
+        f"{' '.join(f'{t:.1f}' for t in miss_ms)}ms, view-hit={view_ms:.2f}ms "
+        f"cache-hit={cache_ms:.3f}ms {views}")
+    return {
+        "ingest_s": t_ingest, "ingest_in_memory_s": p3_ingest, "fsyncs": n_fsync,
+        "fsync_p99_s": fsync_p99, "checkpoint_s": t_checkpoint, "reopen_s": t_reopen,
+        "cold_ms": cold_ms, "warm_ms": warm_ms, "view_hit_ms": view_ms,
+        "cache_hit_ms": cache_ms, "bytes_on_disk": disk, "wal_replayed": replayed,
+    }
+
+
+# --------------------------------------------------------------------------- #
+# Run boundaries (phase 8)
+# --------------------------------------------------------------------------- #
+def step1_operands(intervals, provrc, args):
+    """The rows ProvRC's step-1 pass sorts from its recorded inputs: the
+    group columns and the merged column's lo/hi in sorted order, and
+    ``coalesce_1d``'s run starts."""
+    key_lo, _, val_lo, val_hi, _, i = args
+    _, cols, lo, hi = provrc._step1_rows(key_lo, val_lo, val_hi, i)
+    group = provrc._group_ids(cols, lo.shape[0])
+    starts, _, _ = intervals.coalesce_1d(group, lo, hi)
+    return cols, lo, hi, starts
+
+
+def identity_step1(side):
+    """Step 1's first sorted rows for the backward table of a one-to-one
+    (identity) relation over a side x side array: group columns (out row,
+    out col, in row lo, in row hi), merged column in col, already in order."""
+    r = np.arange(side * side, dtype=np.int64)
+    row, col = r // side, r % side
+    return [row, col, row, row], col, col
+
+
+def check_run_flags(flags, cols, lo, hi, starts, what) -> None:
+    if not np.array_equal(lo, hi):
+        raise AssertionError(f"{what}: step 1's first pass sorts point rows")
+    if not np.array_equal(np.flatnonzero(flags), starts):
+        raise AssertionError(f"{what}: run_boundaries differs from coalesce_1d")
+
+
+def phase_rb_main(ops_mod, intervals, provrc, seen) -> tuple[list, tuple]:
+    """The run-boundary path: ``ops.run_boundaries`` on each phase 3
+    workflow's recorded step-1 rows and on the 2048 x 2048 identity's."""
+    tables = []
+    for wf, args in seen.step1.items():
+        cols, lo, hi, starts = step1_operands(intervals, provrc, args)
+        flags = ops_mod.run_boundaries(cols, lo, hi, device="cuda")
+        check_run_flags(flags, cols, lo, hi, starts, wf)
+        tables.append((wf, cols, lo, hi))
+        log(f"  {wf:14s} rows={lo.shape[0]} n_keys={len(cols)} runs={int(flags.sum())}")
+    cols, lo, hi = identity_step1(RB_SIDE)
+    flags = ops_mod.run_boundaries(cols, lo, hi, device="cuda")
+    group = provrc._group_ids(cols, lo.shape[0])
+    check_run_flags(flags, cols, lo, hi, intervals.coalesce_1d(group, lo, hi)[0], "identity")
+    log(f"  identity {RB_SIDE}x{RB_SIDE} rows={lo.shape[0]} n_keys={len(cols)} "
+        f"runs={int(flags.sum())}")
+    if len(tables) != 9:
+        raise AssertionError(f"recorded step-1 rows of {len(tables)} workflows, not 9")
+    return tables, (cols, lo, hi)
+
+
+def rb_needed_ops(torch, packed, n_keys) -> int:
+    """Operations this table needs: for each row after the first, the key
+    compares up to the first changed key; where none changed, all of them,
+    the add of hi + 1 and the lo compare."""
+    total, n, chunk = 0, packed.shape[0], 1 << 20
+    for s in range(1, n, chunk):
+        e = min(n, s + chunk)
+        if n_keys:
+            diff = packed[s:e, :n_keys] != packed[s - 1 : e - 1, :n_keys]
+            first = diff.int().argmax(dim=1)
+            total += int(torch.where(diff.any(dim=1), first + 1,
+                                     torch.full_like(first, n_keys + 2)).sum())
+        else:
+            total += 2 * (e - s)
+    return total
+
+
+def rb_bytes(n, n_keys) -> int:
+    """Bytes the flags must move: each row's active lanes ([0, n_keys + 2))
+    read once, in the 32-byte sectors memory moves them in, and one flag
+    byte written."""
+    return n * 32 * -(-(n_keys + 2) * 4 // 32) + n
+
+
+def rb_table(torch, n, n_keys, seed):
+    """A made-up sorted table on the card: each key column sorted over 3
+    values (long runs), lo sorted, hi = lo + 0..2."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def ints(hi_val):
+        return torch.randint(0, hi_val, (n,), generator=g, device="cuda", dtype=torch.int32)
+
+    p = torch.zeros((n, 128), dtype=torch.int32, device="cuda")
+    for c in range(n_keys):
+        p[:, c] = torch.sort(ints(3)).values
+    lo = torch.sort(ints(max(n // 2, 2))).values
+    p[:, n_keys] = lo
+    p[:, n_keys + 1] = lo + ints(3)
+    return p
+
+
+def check_rb_kernel(torch, rb, ref, lib, packed, n_keys, label, timed, expect=None):
+    """Hold ``run_boundaries_packed`` at block_rows 256 and 1024 against its
+    plain version (exact); with ``timed``, time the kernel's own launch,
+    the wrapper and the plain version."""
+    n = packed.shape[0]
+    want = ref.run_boundaries_ref(packed, n_keys)
+    err = 0
+    for block_rows in (256, 1024):
+        got = rb.run_boundaries_packed(packed, n_keys=n_keys, block_rows=block_rows)
+        torch.cuda.synchronize()
+        if n:
+            err = max(err, int((got.int() - want.int()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"run_boundaries_packed differs from plain at {label} block_rows={block_rows}"
+            )
+    if expect is not None and want.cpu().tolist() != expect:
+        raise AssertionError(f"run_boundaries at {label}: {want.cpu().tolist()} != {expect}")
+    rec = {"shape": label, "max_abs_err": err}
+    if not timed:
+        return rec
+    out = torch.empty(n, dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = cuda_ms(torch, lambda: checked(lib.rb_run_boundaries(
+        packed.data_ptr(), out.data_ptr(), n, n_keys, 1024, stream
+    )))
+    wrapper_ms = cuda_ms(torch, lambda: rb.run_boundaries_packed(packed, n_keys=n_keys))
+    plain_ms = cuda_ms(torch, lambda: ref.run_boundaries_ref(packed, n_keys))
+    bytes_moved = rb_bytes(n, n_keys)
+    ops = rb_needed_ops(torch, packed, n_keys)
+    b_ms, b_by = bound(bytes_moved, ops)
+    log(
+        f"  run_boundaries_packed {label}: equal runs={int(want.sum())} "
+        f"kernel={ms:.4f}ms wrapper={wrapper_ms:.4f}ms plain={plain_ms:.4f}ms "
+        f"bound={b_ms:.4f}ms ({b_by}) bytes={bytes_moved} ops={ops}"
+    )
+    rec.update({"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by})
+    return rec
+
+
+def host_ms(torch, fn, reps=3) -> float:
+    """Median host milliseconds of ``fn`` (synchronized) over ``reps`` runs."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_rb_checks(torch, rb, ref, lib, ops_mod, tables, big) -> tuple[dict, list]:
+    """The kernel against its plain version: made-up tables, edge rows, the
+    main path's tables; the 2048 x 2048 table also through the whole
+    ``ops.run_boundaries`` wrapper, with its host pack and upload apart.
+    Returns the record that stands for the main path and all records."""
+    records = []
+    for n in RB_ROWS:
+        for n_keys in RB_KEYS:
+            p = rb_table(torch, n, n_keys, seed=n * 131 + n_keys)
+            records.append(check_rb_kernel(
+                torch, rb, ref, lib, p, n_keys, f"made-up {n}x{n_keys}", timed=n == RB_ROWS[-1]
+            ))
+    i32 = np.iinfo(np.int32)
+    edge = torch.full((3, 128), i32.min, dtype=torch.int32, device="cuda")
+    wrap = torch.zeros((4, 128), dtype=torch.int32, device="cuda")
+    wrap[:, 1] = torch.tensor([0, 5, i32.min, i32.min + 1], dtype=torch.int32)
+    wrap[:, 2] = i32.max
+    for p, n_keys, expect, label in ((edge, 0, [1, 0, 0], "INT32_MIN row 0, n_keys=0"),
+                                     (edge, 1, [1, 0, 0], "INT32_MIN row 0, n_keys=1"),
+                                     (wrap, 1, [1, 1, 0, 1], "hi=INT32_MAX wrap")):
+        records.append(check_rb_kernel(torch, rb, ref, lib, p, n_keys, label, False, expect))
+    for wf, cols, lo, hi in tables:
+        p = torch.from_numpy(ops_mod._pack_run_table(cols, lo, hi)).to("cuda")
+        records.append(check_rb_kernel(
+            torch, rb, ref, lib, p, len(cols), f"phase3 {wf} {lo.shape[0]}x{len(cols)}", True
+        ))
+    cols, lo, hi = big
+    packed_host = ops_mod._pack_run_table(cols, lo, hi)
+    p = torch.from_numpy(packed_host).to("cuda")
+    main = check_rb_kernel(
+        torch, rb, ref, lib, p, len(cols), f"identity {RB_SIDE}x{RB_SIDE} {lo.shape[0]}x{len(cols)}",
+        True,
+    )
+    records.append(main)
+    del p
+    pack_ms = host_ms(torch, lambda: ops_mod._pack_run_table(cols, lo, hi))
+    upload_ms = host_ms(torch, lambda: torch.from_numpy(packed_host).to("cuda"))
+    del packed_host
+    ops_ms = host_ms(torch, lambda: ops_mod.run_boundaries(cols, lo, hi, device="cuda"))
+    main.update({"ops_ms": ops_ms, "pack_ms": pack_ms, "upload_ms": upload_ms})
+    log(f"  ops.run_boundaries {main['shape']}: total={ops_ms:.1f}ms "
+        f"pack={pack_ms:.1f}ms upload={upload_ms:.1f}ms (host clock, medians of 3)")
+    return main, records
+
+
+def run_phase(torch, wrappers, name, fn):
+    """Run one phase; log its wall time, each kernel's launches during it
+    and the peak CUDA memory."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    before = (rj.range_join_mask.launches, rj.range_join_tile_masks.launches)
+    before = {k: w.launches for k, w in wrappers.items()}
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    log(
-        f"[phase {name}] wall={dt:.2f}s "
-        f"range_join_mask+={rj.range_join_mask.launches - before[0]} "
-        f"range_join_tile_masks+={rj.range_join_tile_masks.launches - before[1]} "
-        f"peak_cuda_mem={torch.cuda.max_memory_allocated()}B"
-    )
+    launched = " ".join(f"{k}+={w.launches - before[k]}" for k, w in wrappers.items())
+    log(f"[phase {name}] wall={dt:.2f}s {launched} "
+        f"peak_cuda_mem={torch.cuda.max_memory_allocated()}B")
     return out
+
+
+def main_path(wrappers, names, phase):
+    """Zero the counters of ``names``, run ``phase`` (a callable), read
+    them; each kernel must have launched."""
+    for k in names:
+        wrappers[k].launches = 0
+    out = phase()
+    launches = {k: wrappers[k].launches for k in names}
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k} never launched on its path")
+    return out, launches
 
 
 def main() -> int:
@@ -678,6 +1105,8 @@ def main() -> int:
         from repro_torch.kernels import _build, ref
         from repro_torch.kernels import ops as ops_mod
         from repro_torch.kernels import range_join as rj
+        from repro_torch.kernels import run_boundary as rb
+        from repro_torch.core import intervals, provrc
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})", file=sys.stderr)
         return 2
@@ -693,53 +1122,82 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
+    wrappers = {
+        "range_join_mask": rj.range_join_mask,
+        "range_join_tile_masks": rj.range_join_tile_masks,
+        "run_boundaries_packed": rb.run_boundaries_packed,
+    }
+    joins = ("range_join_mask", "range_join_tile_masks")
     records = run_phase(
-        torch, rj, "2 kernels vs plain",
+        torch, wrappers, "2 kernels vs plain",
         lambda: phase_kernels(torch, rj, ref, lib, ops_mod),
     )
 
-    # the main path: counters count only the launches of phases 3-5
-    rj.range_join_mask.launches = 0
-    rj.range_join_tile_masks.launches = 0
-    with MainPathRecorder(ops_mod) as seen:
+    # the main path, phases 3-5: the counters count only their launches
+    def query_path():
         seen.phase = 3
-        run_phase(
-            torch, rj, "3 fig8/9 ingest+query",
-            lambda: phase_fig89(core, C, (256, 20_000, 128, 6, 40_000), "cuda"),
+        p3 = run_phase(
+            torch, wrappers, "3 fig8/9 ingest+query",
+            lambda: phase_fig89(core, C, FIG89_SIZES, "cuda", seen),
         )
         seen.phase = 4
-        run_phase(
-            torch, rj, "4 accel DAG frontiers",
-            lambda: phase_accel(core, (32, 31), 20, 2, 330, "cuda"),
+        accel = run_phase(
+            torch, wrappers, "4 accel DAG frontiers",
+            lambda: phase_accel(core, *ACCEL, "cuda"),
         )
         seen.phase = 5
         run_phase(
-            torch, rj, "5 per-hop dense route",
+            torch, wrappers, "5 per-hop dense route",
             lambda: phase_perhop_dense(core, 20_000, 16, 200, "cuda"),
         )
-    launches = {
-        "range_join_mask": rj.range_join_mask.launches,
-        "range_join_tile_masks": rj.range_join_tile_masks.launches,
-    }
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+        return p3, accel
+
+    with MainPathRecorder(ops_mod, provrc) as seen:
+        (p3, accel), launches = main_path(wrappers, joins, query_path)
     log(f"main-path launches: {launches}")
 
     main_recs, main_records = run_phase(
-        torch, rj, "6 kernels vs plain on the main path's operands",
+        torch, wrappers, "6 kernels vs plain on the main path's operands",
         lambda: phase_main_operands(torch, rj, ref, lib, ops_mod, seen),
     )
+
+    # the store's path, phase 7
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="smoke_store_", dir=build_dir) as workdir:
+        store, store_launches = main_path(wrappers, joins, lambda: run_phase(
+            torch, wrappers, "7 durable store",
+            lambda: phase_store(core, C, FIG89_SIZES, p3, (*accel, *ACCEL), "cuda", workdir),
+        ))
+    log(f"store-path launches: {store_launches}")
+
+    # the run-boundary path, phase 8
+    (tables, big), rb_launches = main_path(
+        wrappers, ("run_boundaries_packed",),
+        lambda: run_phase(
+            torch, wrappers, "8a ops.run_boundaries on the main path's tables",
+            lambda: phase_rb_main(ops_mod, intervals, provrc, seen),
+        ),
+    )
+    launches.update(rb_launches)
+    log(f"run-boundary path launches: {rb_launches}")
+    rb_main, rb_records = run_phase(
+        torch, wrappers, "8b run_boundaries_packed vs plain",
+        lambda: phase_rb_checks(torch, rb, ref, lib, ops_mod, tables, big),
+    )
+    main_recs["run_boundaries_packed"] = rb_main
+    main_records["run_boundaries_packed"] = rb_records
+
     kernels = []
     for name, rec in main_recs.items():
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": KERNEL_SOURCE,
+            "source": KERNEL_SOURCES[name],
             "replaces": REPLACES[name],
             "launches": launches[name],
             "max_abs_err": max(
-                r["max_abs_err"] for r in records[name] + main_records[name]
+                r["max_abs_err"] for r in records.get(name, []) + main_records[name]
             ),
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"],
@@ -748,7 +1206,10 @@ def main() -> int:
             "library_ms": None,
             "wrapper_ms": rec["wrapper_ms"],
             "shape": rec["shape"],
+            **({"launches_store_path": store_launches[name]} if name in joins else {}),
+            **{k: rec[k] for k in ("ops_ms", "pack_ms", "upload_ms") if k in rec},
         })
+    log(f"store: {json.dumps(store)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -5,11 +5,12 @@ Query Processing for Fine-Grained Array Lineage").  Public API:
 
     from repro_torch.core import DSLog, QueryBox, compress, LineageRelation
 
-``DSLog()`` runs its dense θ-joins on CUDA by default; pass
-``device="cpu"`` for the plain CPU paths.
+``DSLog()``, ``DSLog.open()`` and ``DSLog.load()`` run their dense θ-joins
+on CUDA by default; pass ``device="cpu"`` for the plain CPU paths.
 """
 
 from .catalog import ArrayDef, DSLog, LineageEntry  # noqa: F401
+from .commit import CommitPipeline, LeaseHeldError, WriterLease  # noqa: F401
 from .graph import CycleError, LineageGraph  # noqa: F401
 from .index import IntervalIndex  # noqa: F401
 from .planner import QueryPlan, QueryPlanner  # noqa: F401
@@ -25,4 +26,6 @@ from .query import (  # noqa: F401
     theta_join_inverse_batch,
 )
 from .relation import LineageRelation  # noqa: F401
-from .table import CompressedTable  # noqa: F401
+from .reuse import ReusePredictor, generalize, instantiate  # noqa: F401
+from .table import CompressedTable, TableHandle  # noqa: F401
+from .wal import WalRecord, WriteAheadLog  # noqa: F401

@@ -1,31 +1,48 @@
-"""DSLog — the lineage storage manager (paper §III, §V), in memory.
+"""DSLog — the lineage storage manager (paper §III, §V, §VI).
 
-The port of ``repro.core.catalog``.  This slice keeps the paper's loop of
-ingest and query:
+The port of ``repro.core.catalog``: the same manifest, blob and WAL bytes,
+so either package opens a store the other wrote.  The catalog owns:
 
-* named, shape-declared **Arrays** (§III.A ``Array``) and ``acc@k``
-  versioned names for in-place ops;
+* named, shape-declared **Arrays** (§III.A ``Array``),
 * **lineage entries** — ProvRC-compressed backward (+ optionally forward)
-  tables between array pairs (§III.A ``Lineage``), ingested through
-  :meth:`DSLog.add_lineage` or :meth:`DSLog.register_operation`;
-* the **lineage DAG** (:class:`~repro_torch.core.graph.LineageGraph`), with
-  cycle rejection;
-* multi-hop ``prov_query`` (§V) in both call forms — the paper's explicit
-  array path and the graph form — served by the cost-based
-  :class:`~repro_torch.core.planner.QueryPlanner`, whose dense joins run
-  on the store's ``device``.
+  tables between array pairs (§III.A ``Lineage``),
+* the **lineage DAG** (:class:`~repro_torch.core.graph.LineageGraph`) —
+  built incrementally as entries arrive (with cycle rejection) and rebuilt
+  from the manifest on load,
+* **operation registrations** that bundle multiple lineage entries under an
+  operation signature and drive automatic reuse prediction (§VI),
+* **persistence** — a versioned JSON manifest plus one packed binary blob
+  per table (optionally zlib-compressed, i.e. ProvRC-GZip).  Reloaded
+  tables are *lazy* (:class:`~repro_torch.core.table.TableHandle`): a blob
+  deserializes the first time a query or stat actually touches it, and
+  ``save()`` rewrites only entries added since the last save/load (dirty
+  tracking).  Op records and the
+  :class:`~repro_torch.core.reuse.ReusePredictor` state round-trip too;
+* **durability** — :meth:`DSLog.open` attaches a write-ahead log, group
+  commit and a writer lease; :meth:`DSLog.load` replays the log's tail;
+* **materialized views** and the answer cache
+  (:class:`~repro_torch.core.views.ViewManager`).
 
-What the reference store also does is still to be ported, and raises
-:class:`NotImplementedError` naming its ``ROADMAP.md`` item rather than
-behaving differently: persistence (``open`` / ``load`` / ``save``, the
-write-ahead log, ``commit`` / ``checkpoint`` / ``mark_dirty`` /
-``compact``), materialized views and the answer cache (``views`` is
-``None``), and automatic reuse (``register_operation`` takes
-``reuse=False`` only).
+Multi-hop ``prov_query`` (§V) comes in two forms, both served by the
+cost-based :class:`~repro_torch.core.planner.QueryPlanner`, whose dense
+joins run on the store's ``device``:
+
+* ``prov_query(path, cells)`` — the paper's explicit array path;
+* ``prov_query(src, dst, cells)`` — graph form: the planner routes over the
+  lineage DAG itself, merging converging branches at fan-in arrays.
+
+Growth beyond the paper: :meth:`DSLog.compact` vacuums blobs orphaned by
+:meth:`DSLog.drop_lineage` and predictor updates; :meth:`DSLog.version`
+mints ``acc@k`` names for in-place ops; executed hops feed their true pair
+counts back into the manifest (:meth:`DSLog.record_hop` /
+:meth:`DSLog.hop_measurement`) so replanning uses measured selectivities.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
@@ -34,22 +51,49 @@ import numpy as np
 
 from repro_torch.kernels.autotune import GeometryTuner
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.obs.export import telemetry_snapshot
 from repro_torch.obs.metrics import IoStatsView, MetricsRegistry
 from repro_torch.obs.trace import QueryTrace, maybe_span
 
 from . import _locks
+from .commit import CommitPipeline, WriterLease
 from .graph import CycleError, LineageGraph
+from .index import IntervalIndex
 from .planner import QueryPlanner
 from .provrc import compress
 from .query import QueryBox
 from .relation import LineageRelation
-from .table import CompressedTable
+from .reuse import (
+    ReusePredictor,
+    sig_key_base,
+    sig_key_dim,
+    sig_key_gen,
+)
+from .table import CompressedTable, TableHandle
+from .views import ViewManager
+from .wal import WAL_FILENAME, WalRecord, WriteAheadLog
 
 __all__ = ["DSLog", "ArrayDef", "LineageEntry"]
+
+# Tables at or above this row count get their key index built and persisted
+# at save time, so a reloaded catalog serves its first selective query
+# without paying the O(n log n) sort.
+_INDEX_PERSIST_MIN_ROWS = 4096
+
+_MANIFEST_VERSION = 3
+
+# Constructor options that open() may apply to an already-loaded store.
+# (reuse_m lands on the predictor: the ctor only forwards it there.)
+_OPEN_OVERRIDES = ("store_forward", "compress_method", "gzip", "hop_decay", "reuse_m")
 
 # Counters pre-seeded at zero in every store registry so reads and `in`
 # checks on the io_stats view behave like a dict.
 SEED_COUNTERS = (
+    "tables_loaded",
+    "tables_written",
+    "manifests_written",
+    "sig_tables_written",
+    "bytes_written",
     # batched plan-step execution: packed dense dispatches (device kernel
     # launches, or their CPU-twin equivalents), how many joins rode each,
     # and pack occupancy (rows used vs padded)
@@ -61,10 +105,30 @@ SEED_COUNTERS = (
     # cross-product tiles the block-diagonal layout skipped
     "batch_tiles_visited",
     "batch_tiles_skipped",
-    # the planner races a view plan per single-source/single-target query;
-    # without views every race is a miss
+    # materialized views + answer cache (repro/core/views.py)
+    "view_hits",
     "view_misses",
+    "cache_hits",
+    "cache_misses",
+    "views_materialized",
+    "views_demoted",
+    "views_invalidated",
 )
+
+
+def _apply_open_overrides(log, ctor_kw: dict) -> None:
+    for key, val in ctor_kw.items():
+        if key not in _OPEN_OVERRIDES:
+            raise TypeError(
+                f"unknown store option {key!r} for open(); valid on an "
+                f"existing store: {', '.join(_OPEN_OVERRIDES)}"
+            )
+        if key == "reuse_m" and not hasattr(log, "reuse_m"):
+            log.predictor.m = int(val)
+        else:
+            setattr(log, key, val)
+            if key == "reuse_m":
+                log.predictor.m = int(val)
 
 # Cost-feedback aging: every new hop measurement decays the accumulated
 # (pairs, qrows) mass by this factor before adding its own, so the measured
@@ -75,17 +139,102 @@ _DEFAULT_HOP_DECAY = 0.9
 # shifted workload has to out-shout (the "sample cap" of the EMA).
 _HOP_SAMPLE_CAP = 1e6
 
-# the ROADMAP.md queue item that ports persistence, views and reuse
-_ROADMAP_ITEM = (
-    "ROADMAP.md §1 'Still to port' item 2: views, reuse, WAL and commit, "
-    "save/load"
-)
+
+def _sig_blob_name(key: str, label: str) -> str:
+    """Stable per-(signature, pair-label) blob name.
+
+    Deterministic naming is what makes per-signature dirty tracking work: a
+    re-saved signature overwrites its own blobs, a clean signature's blobs
+    are never touched, and blobs orphaned by a rejected signature are
+    recognizable to :meth:`DSLog.compact`.
+    """
+    h = hashlib.sha1(key.encode()).hexdigest()[:10]
+    return f"sig_{h}_{label.replace(':', '-')}.prvc"
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet ({_ROADMAP_ITEM})"
+def _atomic_write(path: str, payload: str) -> None:
+    """Crash-safe manifest write: temp file + fsync + atomic rename, so a
+    torn save can never leave a half-written ``catalog.json`` behind."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(payload)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _write_blob(path: str, blob: bytes) -> None:
+    """Write a manifest-referenced blob durably (write + fsync).
+
+    The manifest only becomes visible through :func:`_atomic_write`'s
+    rename; every blob it references must already be on stable storage by
+    then, or a crash right after the rename could publish a manifest
+    pointing at torn blobs.
+    """
+    with open(path, "wb") as f:
+        f.write(blob)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def is_catalog_blob(fn: str) -> bool:
+    """Is ``fn`` a blob the catalog owns (and may therefore vacuum)?
+
+    The reference's ``fsck`` uses the same rule for its orphan-blob check,
+    so GC and verification agree on ownership.
+    """
+    return (
+        (fn.startswith("lineage_") and fn.endswith((".prvc", ".idx")))
+        or (fn.startswith("sig_") and fn.endswith(".prvc"))
+        or (fn.startswith("view_") and fn.endswith(".prvc"))
     )
+
+
+def manifest_referenced_files(
+    lineage_recs, predictor_chunk, views_chunk=None
+) -> set[str]:
+    """The blob closure of a manifest: every file its records reference.
+
+    ``lineage_recs`` is an iterable of persisted lineage records (the
+    manifest's ``lineage`` list, or ``DSLog._persisted.values()`` — same
+    schema); ``predictor_chunk``/``views_chunk`` are the manifest's
+    ``predictor``/``views`` chunks or ``None``.  :meth:`DSLog.compact`
+    vacuums everything else, as the reference's does.
+    """
+    referenced = {"catalog.json"}
+    for rec in lineage_recs:
+        for key in ("file", "idx", "fwd", "fwd_idx"):
+            if rec.get(key):
+                referenced.add(rec[key])
+    if predictor_chunk:
+        for rec in predictor_chunk.get("sigs", []):
+            referenced.update(rec.get("tables", {}).values())
+    if views_chunk:
+        for rec in views_chunk.get("views", []):
+            for key in ("file", "fwd"):
+                if rec.get(key):
+                    referenced.add(rec[key])
+    return referenced
+
+
+def _vacuum_dir(root: str, referenced: set[str]) -> dict[str, int]:
+    """Delete catalog-owned blob files under ``root`` not in ``referenced``.
+
+    Only files matching the catalog's own naming patterns
+    (:func:`is_catalog_blob`) are candidates; anything else in the
+    directory is left alone.
+    """
+    removed = reclaimed = 0
+    for fn in os.listdir(root):
+        path = os.path.join(root, fn)
+        if not os.path.isfile(path) or fn in referenced:
+            continue
+        if not is_catalog_blob(fn):
+            continue
+        reclaimed += os.path.getsize(path)
+        os.remove(path)
+        removed += 1
+    return {"files_removed": removed, "bytes_reclaimed": reclaimed}
 
 
 @dataclass
@@ -95,44 +244,88 @@ class ArrayDef:
 
 
 class LineageEntry:
-    """Compressed lineage between an op input (src) and op output (dst)."""
+    """Compressed lineage between an op input (src) and op output (dst).
+
+    After ``DSLog.load`` the tables are :class:`TableHandle`s: reading
+    :attr:`backward` / :attr:`forward` deserializes the blob on first touch.
+    Row counts (:meth:`backward_rows` / :meth:`forward_rows`) come from the
+    manifest, so the planner can cost a hop without any I/O.
+    """
 
     def __init__(
         self,
         lineage_id: int,
         src: str,
         dst: str,
-        backward: CompressedTable,
-        forward: CompressedTable | None = None,
+        backward: "CompressedTable | TableHandle",
+        forward: "CompressedTable | TableHandle | None" = None,
         op_name: str | None = None,
+        reused_from: str | None = None,
     ):
         self.lineage_id = lineage_id
         self.src = src  # input array name
         self.dst = dst  # output array name
         self.op_name = op_name
-        self.backward = backward  # keys = dst axes
-        self.forward = forward  # keys = src axes, or None
+        self.reused_from = reused_from
+        self._bwd = backward
+        self._fwd = forward
+
+    # ------------------------------------------------------------------ #
+    @property
+    def backward(self) -> CompressedTable:
+        """Backward table (keys = dst axes); loads a lazy handle."""
+        if isinstance(self._bwd, TableHandle):
+            return self._bwd.get()
+        return self._bwd
+
+    @property
+    def forward(self) -> CompressedTable | None:
+        """Forward table (keys = src axes) or None; loads a lazy handle."""
+        if isinstance(self._fwd, TableHandle):
+            return self._fwd.get()
+        return self._fwd
 
     @property
     def has_forward(self) -> bool:
-        return self.forward is not None
+        """Whether a forward materialization exists, without loading it."""
+        return self._fwd is not None
+
+    @property
+    def backward_loaded(self) -> bool:
+        return not isinstance(self._bwd, TableHandle) or self._bwd.loaded
+
+    @property
+    def forward_loaded(self) -> bool:
+        if self._fwd is None:
+            return False
+        return not isinstance(self._fwd, TableHandle) or self._fwd.loaded
 
     @property
     def backward_rows(self) -> int:
-        return self.backward.n_rows
+        if isinstance(self._bwd, TableHandle):
+            return self._bwd.rows
+        return self._bwd.n_rows
 
     @property
     def forward_rows(self) -> int | None:
-        return None if self.forward is None else self.forward.n_rows
+        if self._fwd is None:
+            return None
+        if isinstance(self._fwd, TableHandle):
+            return self._fwd.rows
+        return self._fwd.n_rows
 
     def peek_table(self, stored: str) -> CompressedTable | None:
-        """The table of one materialization (always resident in memory)."""
-        return self.backward if stored == "backward" else self.forward
+        """The materialized table, or None while the blob is unloaded."""
+        obj = self._bwd if stored == "backward" else self._fwd
+        if obj is None or isinstance(obj, CompressedTable):
+            return obj
+        return obj._table
 
-    def __repr__(self) -> str:
+    def __repr__(self) -> str:  # keep the old dataclass-ish readability
+        state = "loaded" if self.backward_loaded else "lazy"
         return (
             f"LineageEntry(id={self.lineage_id}, {self.src!r}->{self.dst!r}, "
-            f"op={self.op_name!r})"
+            f"op={self.op_name!r}, {state})"
         )
 
 
@@ -143,41 +336,70 @@ class _OpRecord:
     out_arrs: tuple[str, ...]
     op_args: Any
     lineage_ids: list[int] = field(default_factory=list)
+    reused: str | None = None
+
+
+def _json_safe(op_args: Any) -> Any:
+    """Best-effort JSON projection of op args for the manifest.
+
+    Non-JSON args degrade to a repr marker: the op record survives the
+    round-trip, but signature keys derived from it will no longer match the
+    original live object (document-level caveat, not an error).
+    """
+    try:
+        json.dumps(op_args)
+        return op_args
+    except TypeError:
+        return {"__repr__": repr(op_args)}
 
 
 class DSLog:
-    """The lineage index service, in memory, on one device.
+    """The lineage index service, on one device.
 
-    ``device`` is where dense θ-joins run: ``"cuda"`` (the default) launches
-    the CUDA range-join kernels and raises at construction when CUDA is
-    not available; ``"cpu"`` is the reference's interpret mode (the numpy
-    twin, or the kernels' plain PyTorch versions under
-    ``planner.executor``'s ``engine="kernel"``).
+    ``device`` is where dense θ-joins run (queries and view composition):
+    ``"cuda"`` (the default) launches the CUDA range-join kernels and
+    raises at construction when CUDA is not available; ``"cpu"`` is the
+    reference's interpret mode (the numpy twin, or the kernels' plain
+    PyTorch versions under ``planner.executor``'s ``engine="kernel"``).
     """
-
-    views = None  # materialized views: not ported yet (see the module doc)
 
     def __init__(
         self,
+        root: str | None = None,
         store_forward: bool = True,
         compress_method: str = "auto",
+        reuse_m: int = 1,
+        gzip: bool = True,
         hop_decay: float = _DEFAULT_HOP_DECAY,
         device="cuda",
     ):
         self.device = resolve_device(device)
+        self.root = root
         self.store_forward = store_forward
         self.compress_method = compress_method
+        self.gzip = gzip
         self.hop_decay = float(hop_decay)
         self.arrays: dict[str, ArrayDef] = {}
         self.lineage: dict[int, LineageEntry] = {}
         self.by_pair: dict[tuple[str, str], list[int]] = {}
         self.graph = LineageGraph()
         self.ops: list[_OpRecord] = []
+        self.predictor = ReusePredictor(m=reuse_m)
         self.planner = QueryPlanner(self)
-        # measured launch geometries for the batched join engines,
-        # consulted by planner.executor
+        self.views = ViewManager(self)
+        # measured launch geometries for the batched join engines, persisted
+        # as an autotune.json sidecar and consulted by planner.executor
         self.autotune = GeometryTuner()
         self._next_id = 0
+        # persistence bookkeeping: which entries need (re)writing, the
+        # manifest records of already-persisted entries, and lazy-I/O
+        # counters that tests/benchmarks assert on.
+        self._dirty: set[int] = set()
+        self._persisted: dict[int, dict] = {}
+        self._predictor_chunk: dict | None = None
+        # non-blob manifest state (arrays, ops, versions, hop stats) changed
+        # since the last save/load
+        self._meta_dirty = False
         self._stats_lock = _locks.new_rlock("catalog._stats_lock")
         # measured per-hop selectivities: "lid:stored:side" -> [pairs, qrows]
         self.hop_stats: dict[str, list[float]] = _locks.guard_mapping(
@@ -185,8 +407,9 @@ class DSLog:
         )
         # versioned-name counters for in-place ops: base name -> latest k
         self._versions: dict[str, int] = {}
-        # telemetry: all meters live in the registry; io_stats is a live
-        # read-only dict view over its unlabeled counters.
+        # telemetry: all I/O meters live in the registry (internally
+        # locked, rank above _stats_lock); io_stats is a live read-only
+        # dict view over its unlabeled counters.
         self.metrics = MetricsRegistry("dslog")
         self.metrics.seed_counters(SEED_COUNTERS)
         self.metrics.register_collector(self._collect_gauges)
@@ -194,48 +417,363 @@ class DSLog:
         # per-query structured tracing (prov_query(..., trace=True));
         # None = off, the only cost on untraced hot paths.
         self._active_trace: QueryTrace | None = None
+        # durability subsystem (attached by open()/load(); None = legacy
+        # explicit-save store with no write-ahead log)
+        self._wal: WriteAheadLog | None = None
+        self._pipeline: CommitPipeline | None = None
+        self._lease: WriterLease | None = None
+        self._wal_lsn = 0  # manifest checkpoint LSN: replay starts past it
+        self._replaying = False
+        self._closed = False
+        if root:
+            os.makedirs(root, exist_ok=True)
 
     def _bump(self, key: str, n: int = 1) -> None:
         self.metrics.inc(key, n)
 
     def _collect_gauges(self):
-        """Snapshot-time gauges: hop-stat EMAs (top 32 by pair mass)."""
+        """Snapshot-time gauges: hop-stat EMAs and view-manager state.
+
+        Runs outside the registry lock (it takes ``_stats_lock`` /
+        ``views._lock``), so derived state exports with zero hot-path
+        cost.
+        """
         with self._stats_lock:
             hops = {k: tuple(v) for k, v in self.hop_stats.items()}
+        # Cap the per-hop series so a huge store exports a bounded page.
         top = sorted(hops.items(), key=lambda kv: -kv[1][0])[:32]
         for key, (pairs, qrows) in top:
             yield ("hop_pairs_ema", {"hop": key}, pairs)
             yield ("hop_qrows_ema", {"hop": key}, qrows)
+        try:
+            vstats = self.views.stats()
+        except Exception:
+            return
+        for name, val in vstats.items():
+            if isinstance(val, (int, float)):
+                yield (f"views_{name}", {}, val)
 
     def metrics_snapshot(self) -> dict:
         """Structured dump of every instrument (see ``repro_torch.obs``)."""
         return self.metrics.snapshot()
 
+    def health(self, run_fsck: bool = True) -> dict:
+        """Registry red-flags (``repro_torch.obs.export``); ``run_fsck=True``
+        raises until ``fsck`` is ported."""
+        from repro_torch.obs.export import health as _health
+
+        return _health(self, run_fsck=run_fsck)
+
+    def _drop_hop_stats(self, lineage_id: int) -> None:
+        """Forget measured selectivities for one entry, under the stats lock.
+
+        Deletes in place — never rebinds ``hop_stats`` — so concurrent
+        readers (and the race detector's guard wrapper) keep observing the
+        same mapping object.
+        """
+        with self._stats_lock:
+            stale = [
+                k for k in self.hop_stats if int(k.split(":", 1)[0]) == lineage_id
+            ]
+            for k in stale:
+                del self.hop_stats[k]
+
+    @property
+    def dirty(self) -> bool:
+        """Anything (entries, predictor, views, or manifest metadata)
+        unsaved?"""
+        return (
+            bool(self._dirty)
+            or self.predictor.dirty
+            or self._meta_dirty
+            or self.views.dirty
+        )
+
     # ------------------------------------------------------------------ #
-    # Not ported yet: each raises, naming its ROADMAP item
+    # Durable concurrent ingest: WAL, group commit, leases, recovery
     # ------------------------------------------------------------------ #
     @classmethod
-    def open(cls, root: str, **kw) -> "DSLog":
-        raise _not_ported("DSLog.open (WAL, group commit, leases)")
+    def open(
+        cls,
+        root: str,
+        *,
+        durability: str = "group",
+        flush_interval: float = 0.005,
+        max_batch: int = 256,
+        lease_ttl: float = 300.0,
+        device="cuda",
+        **ctor_kw,
+    ) -> "DSLog":
+        """Open ``root`` as the store's (single) writer, durably.
 
-    @staticmethod
-    def load(root: str) -> "DSLog":
-        raise _not_ported("DSLog.load")
+        Acquires the directory's writer lease (a second concurrent open
+        raises :class:`~repro_torch.core.commit.LeaseHeldError`), loads the
+        manifest if one exists, replays the write-ahead log tail past the
+        last checkpoint — truncating any torn trailing record — and
+        attaches a :class:`~repro_torch.core.commit.CommitPipeline` so every
+        subsequent mutation is logged before it is acknowledged.
 
-    def save(self, checkpoint_wal: bool = True) -> None:
-        raise _not_ported("DSLog.save")
+        ``durability`` is ``"group"`` (default: one fsync per
+        ``flush_interval`` / ``max_batch`` batch), ``"sync"`` (fsync per
+        record), or ``"manual"`` (fsync only at :meth:`commit` /
+        :meth:`checkpoint`).  ``device`` is the store's (see the class
+        doc).  Use as a context manager::
+
+            with DSLog.open("/data/lineage") as log:
+                log.add_lineage(...)
+            # exit = checkpoint (incremental save + log truncation),
+            # lease release
+        """
+        device = resolve_device(device)
+        os.makedirs(root, exist_ok=True)
+        lease = WriterLease.acquire(root, ttl=lease_ttl)
+        try:
+            if os.path.exists(os.path.join(root, "catalog.json")):
+                log = cls.load(root, device=device)
+                _apply_open_overrides(log, ctor_kw)
+            else:
+                log = cls(root=root, device=device, **ctor_kw)
+            if log._wal is None:
+                # fresh store, or an existing store opened durably for the
+                # first time: create the log (replays nothing).  A crashed
+                # store's log was already replayed by load() above.
+                log._attach_wal()
+            log._wal.repair()  # we hold the lease: torn tails may be cut
+            log._pipeline = CommitPipeline(
+                durability, flush_interval, max_batch, metrics=log.metrics
+            )
+            log._pipeline.attach(log._wal)
+            log._lease = lease
+            return log
+        except BaseException:
+            lease.release()
+            raise
+
+    def __enter__(self) -> "DSLog":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self, checkpoint: bool = True) -> None:
+        """Flush, optionally checkpoint, and release the writer lease.
+
+        ``checkpoint=False`` leaves the WAL as the only record of unsaved
+        work (the next open replays it) — what a crashed writer looks like,
+        minus the torn tail.  A store that was merely ``load()``-ed (no
+        lease held) never checkpoints on close: truncating the log without
+        the lease could destroy a live writer's records.  Idempotent.
+        """
+        if self._closed:
+            return
+        self._closed = True
+        try:
+            if self._pipeline is not None:
+                self._pipeline.commit()
+            if self._wal is not None:
+                if checkpoint and self._lease is not None:
+                    self.checkpoint()
+                else:
+                    self._wal.flush(sync=True)
+        finally:
+            if self._pipeline is not None:
+                self._pipeline.close()
+            if self._wal is not None:
+                self._wal.close()
+                self._wal = None
+            if self._lease is not None:
+                self._lease.release()
+                self._lease = None
 
     def commit(self) -> None:
-        raise _not_ported("DSLog.commit (write-ahead log)")
+        """Durability barrier: every logged mutation is on disk on return."""
+        if self._pipeline is not None:
+            self._pipeline.commit()
+        elif self._wal is not None:
+            self._wal.flush(sync=True)
 
     def checkpoint(self) -> None:
-        raise _not_ported("DSLog.checkpoint")
+        """Fold the WAL into the manifest: incremental save + truncation."""
+        self.save()
 
     def mark_dirty(self, lineage_id: int) -> None:
-        raise _not_ported("DSLog.mark_dirty (WAL invalidation)")
+        """Declare an entry's tables mutated in place.
 
-    def compact(self, save: bool = True) -> dict[str, int]:
-        raise _not_ported("DSLog.compact")
+        The catalog's dirty tracking only sees *new* entries; a workflow
+        that edits a stored table in place must call this so the mutation
+        is (a) logged to the WAL now — an explicit invalidation record
+        carrying the current table bytes, so a crash cannot silently revert
+        it — and (b) rewritten by the next checkpoint.  Cached interval
+        indexes and stale hop measurements for the entry are dropped.
+        """
+        if lineage_id not in self.lineage:
+            raise KeyError(f"no lineage entry {lineage_id}")
+        e = self.lineage[lineage_id]
+        bwd = e.backward  # a mutated table is necessarily resident
+        bwd.invalidate_index()
+        fwd = e.forward
+        if fwd is not None:
+            fwd.invalidate_index()
+        self._dirty.add(lineage_id)
+        self._meta_dirty = True
+        self._drop_hop_stats(lineage_id)
+        self.views.on_mutation(lineage_id)
+        blobs = [bwd.serialize(compress=self.gzip)]
+        meta = {"id": lineage_id, "fwd": fwd is not None}
+        if fwd is not None:
+            blobs.append(fwd.serialize(compress=self.gzip))
+        self._wal_append_entry("dirty", meta, blobs)
+
+    # -- internal plumbing --------------------------------------------- #
+    def _attach_wal(
+        self,
+        pipeline: CommitPipeline | None = None,
+        truncate: bool = False,
+    ) -> int:
+        """Open (or create) the root's WAL and replay its tail past the
+        manifest checkpoint LSN.  Returns the number of replayed records.
+
+        ``truncate=True`` (torn-tail repair) is reserved for callers that
+        hold the store's writer lease — a plain ``load()`` must never
+        mutate a log a live writer may still be appending to."""
+        assert self.root is not None
+        if self._wal is None:
+            self._wal = WriteAheadLog(
+                os.path.join(self.root, WAL_FILENAME), metrics=self.metrics
+            )
+        if pipeline is not None:
+            self._pipeline = pipeline
+            pipeline.attach(self._wal)
+        replayed = self._wal.recover(self._wal_lsn, truncate=truncate)
+        for rec in replayed:
+            self._replay_record(rec)
+        if replayed:
+            self._bump("wal_replayed", len(replayed))
+        return len(replayed)
+
+    def _wal_emit(
+        self, wal: WriteAheadLog | None, rtype: str, meta: dict, blobs=()
+    ) -> None:
+        if wal is None or self._replaying:
+            return
+        # legacy single-writer stores append without a lease by design:
+        # they flush synchronously (below) and never truncate, so a torn
+        # tail is the worst a crash leaves.  Truncation stays lease-gated
+        # in the save()/checkpoint paths.
+        wal.append(rtype, meta, blobs)  # dsflow: ignore[wal-lease]
+        if self._pipeline is not None:
+            self._pipeline.notify(wal)
+        else:  # no pipeline attached (plain load): stay conservative
+            wal.flush(sync=True)
+
+    def _wal_append_root(self, rtype: str, meta: dict, blobs=()) -> None:
+        """Log a store-level record (arrays, ops, versions, predictor)."""
+        self._wal_emit(self._wal, rtype, meta, blobs)
+
+    def _wal_append_entry(self, rtype: str, meta: dict, blobs=()) -> None:
+        """Log an entry-level record (entry bytes, in-place invalidation)."""
+        self._wal_emit(self._wal, rtype, meta, blobs)
+
+    def _entry_wal_record(self, entry: LineageEntry) -> tuple[dict, list]:
+        blobs = [entry.backward.serialize(compress=self.gzip)]
+        meta = {
+            "id": entry.lineage_id,
+            "src": entry.src,
+            "dst": entry.dst,
+            "op": entry.op_name,
+            "reused": entry.reused_from,
+            "src_shape": list(self.arrays[entry.src].shape),
+            "dst_shape": list(self.arrays[entry.dst].shape),
+            "fwd": entry.has_forward,
+        }
+        if entry.has_forward:
+            blobs.append(entry.forward.serialize(compress=self.gzip))
+        return meta, blobs
+
+    def _replay_store_record(self, rec: WalRecord) -> bool:
+        """Apply one *store-level* record (array/version/op/obs).  Returns
+        False for record types the caller must handle itself.  Caller holds
+        ``_replaying``.
+        """
+        t, m = rec.type, rec.meta
+        if t == "array":
+            self.define_array(m["name"], tuple(m["shape"]))
+        elif t == "version":
+            base = m["base"]
+            self._versions[base] = max(self._versions.get(base, 0), int(m["k"]))
+            self._meta_dirty = True
+        elif t == "op":
+            self.ops.append(
+                _OpRecord(
+                    m["op"],
+                    tuple(m["in"]),
+                    tuple(m["out"]),
+                    m["args"],
+                    list(m["lids"]),
+                    m.get("reused"),
+                )
+            )
+            self._meta_dirty = True
+        elif t == "obs":
+            captured = {
+                label: CompressedTable.deserialize(bytes(blob))
+                for label, blob in zip(m["labels"], rec.blobs)
+            }
+            shapes_token = tuple(tuple(int(x) for x in s) for s in m["shapes"])
+            self.predictor.observe(m["dim"], m["gen"], shapes_token, captured)
+        else:
+            return False
+        return True
+
+    def _replay_record(self, rec: WalRecord) -> None:
+        """Apply one recovered WAL record to in-memory state.
+
+        Replayed mutations are dirty (the manifest has not seen them) and
+        must not re-log themselves — ``_replaying`` gates the WAL hooks.
+        """
+        t, m = rec.type, rec.meta
+        self._replaying = True
+        try:
+            if self._replay_store_record(rec):
+                pass
+            elif t == "entry":
+                bwd = CompressedTable.deserialize(bytes(rec.blobs[0]))
+                fwd = (
+                    CompressedTable.deserialize(bytes(rec.blobs[1]))
+                    if m.get("fwd")
+                    else None
+                )
+                self.arrays.setdefault(
+                    m["src"], ArrayDef(m["src"], tuple(m["src_shape"]))
+                )
+                self.arrays.setdefault(
+                    m["dst"], ArrayDef(m["dst"], tuple(m["dst_shape"]))
+                )
+                nxt = self._next_id
+                self._next_id = int(m["id"])
+                self._insert_entry(
+                    m["src"], m["dst"], bwd, fwd, m.get("op"), m.get("reused")
+                )
+                self._next_id = max(nxt, int(m["id"]) + 1)
+            elif t == "drop":
+                if int(m["id"]) in self.lineage:
+                    self.drop_lineage(int(m["id"]))
+            elif t == "dirty":
+                lid = int(m["id"])
+                e = self.lineage.get(lid)
+                if e is not None:
+                    e._bwd = CompressedTable.deserialize(bytes(rec.blobs[0]))
+                    if m.get("fwd") and len(rec.blobs) > 1:
+                        e._fwd = CompressedTable.deserialize(bytes(rec.blobs[1]))
+                    self._dirty.add(lid)
+                    self._meta_dirty = True
+                    # replay fires the same precise invalidation the live
+                    # mark_dirty call did — views/answers over this entry's
+                    # route must not survive recovery
+                    self.views.on_mutation(lid)
+            # unknown record types are skipped: forward compatibility
+        finally:
+            self._replaying = False
 
     # ------------------------------------------------------------------ #
     # Array / lineage definition (paper §III.A)
@@ -243,15 +781,28 @@ class DSLog:
     def define_array(self, name: str, shape: tuple[int, ...]) -> ArrayDef:
         arr = ArrayDef(name, tuple(int(d) for d in shape))
         self.arrays[name] = arr
+        self._meta_dirty = True
+        self._wal_append_root("array", {"name": name, "shape": list(arr.shape)})
         return arr
 
+    # ------------------------------------------------------------------ #
+    # Versioned array names for in-place ops (acc@1 → acc@2 → …)
+    # ------------------------------------------------------------------ #
     def version(self, name: str, shape: tuple[int, ...] | None = None) -> str:
         """Mint (and define) the next versioned name for ``name``.
 
         The lineage DAG rejects self-lineage (``acc → acc``), so in-place /
-        accumulator-style updates are logged under fresh names ``base@k``,
-        ``k`` increasing from 1; the new array is defined with ``shape`` (or
-        the latest version's shape when omitted).
+        accumulator-style updates must be logged under fresh names.  Each
+        call returns ``base@k`` with ``k`` increasing from 1; the new array
+        is auto-defined with ``shape`` (or the latest version's shape when
+        omitted), so the idiom is::
+
+            prev = log.latest_version("acc")
+            cur = log.version("acc")
+            log.add_lineage(prev, cur, relation)
+
+        Version counters persist in the manifest, so a reloaded catalog
+        keeps minting from where it left off.
         """
         base = name.split("@", 1)[0]
         if shape is None:
@@ -263,6 +814,8 @@ class DSLog:
         new = f"{base}@{k}"
         if shape is not None:
             self.define_array(new, shape)
+        self._meta_dirty = True
+        self._wal_append_root("version", {"base": base, "k": k})
         return new
 
     def latest_version(self, name: str) -> str:
@@ -279,6 +832,7 @@ class DSLog:
         relation: LineageRelation,
         op_name: str | None = None,
         tables: tuple[CompressedTable, CompressedTable | None] | None = None,
+        reused_from: str | None = None,
     ) -> LineageEntry:
         """Ingest one captured relation (src = op input, dst = op output).
 
@@ -296,7 +850,7 @@ class DSLog:
                 if self.store_forward
                 else None
             )
-        return self._insert_entry(src, dst, bwd, fwd, op_name)
+        return self._insert_entry(src, dst, bwd, fwd, op_name, reused_from)
 
     def _insert_entry(
         self,
@@ -305,14 +859,23 @@ class DSLog:
         bwd: CompressedTable,
         fwd: CompressedTable | None,
         op_name: str | None,
+        reused_from: str | None = None,
     ) -> LineageEntry:
         # cycle check first: a rejected edge must not leave a half-inserted
         # entry (graph.add_edge mutates nothing when it raises)
         self.graph.add_edge(src, dst, self._next_id)
-        entry = LineageEntry(self._next_id, src, dst, bwd, fwd, op_name)
+        entry = LineageEntry(
+            self._next_id, src, dst, bwd, fwd, op_name, reused_from
+        )
         self._next_id += 1
         self.lineage[entry.lineage_id] = entry
         self.by_pair.setdefault((src, dst), []).append(entry.lineage_id)
+        self._dirty.add(entry.lineage_id)
+        self._meta_dirty = True
+        self.views.on_new_edge(src, dst)
+        if self._wal is not None and not self._replaying:
+            meta, blobs = self._entry_wal_record(entry)
+            self._wal_append_entry("entry", meta, blobs)
         return entry
 
     def _remove_entry(self, lineage_id: int) -> None:
@@ -323,6 +886,26 @@ class DSLog:
         if not ids:
             del self.by_pair[(e.src, e.dst)]
         self.graph.remove_edge(e.src, e.dst, lineage_id)
+        self._dirty.discard(lineage_id)
+        self._meta_dirty = True
+
+    def drop_lineage(self, lineage_id: int) -> None:
+        """Remove one lineage entry from the catalog.
+
+        The entry leaves the graph, pair index, and op records immediately;
+        its persisted blobs (if any) stay on disk until :meth:`compact`
+        vacuums them — mirroring how dirty-tracked saves never delete files.
+        """
+        if lineage_id not in self.lineage:
+            raise KeyError(f"no lineage entry {lineage_id}")
+        self._remove_entry(lineage_id)
+        self._persisted.pop(lineage_id, None)
+        self._drop_hop_stats(lineage_id)
+        self.views.on_mutation(lineage_id)
+        for op in self.ops:
+            if lineage_id in op.lineage_ids:
+                op.lineage_ids.remove(lineage_id)
+        self._wal_append_root("drop", {"id": lineage_id})
 
     # ------------------------------------------------------------------ #
     # Planner cost-model feedback (measured per-hop selectivities)
@@ -340,8 +923,15 @@ class DSLog:
         qrows: int,
     ) -> None:
         """Fold the true pair count one executed hop produced into the
-        measured selectivity — an exponential moving average with a sample
-        cap.  Thread-safe (parallel execution calls this from workers)."""
+        measured selectivity — an exponential moving average (each new
+        measurement decays the accumulated mass by ``hop_decay``) with a
+        sample cap, so the feedback tracks workload shifts instead of
+        averaging over all history.  Thread-safe (parallel execution calls
+        this from worker threads)."""
+        if lineage_id < 0:  # view hop: the ViewManager keeps its own EMA
+            return self.views.record_hop(
+                lineage_id, stored, frontier_on, pairs, qrows
+            )
         with self._stats_lock:
             st = self.hop_stats.setdefault(
                 self._hop_key(lineage_id, stored, frontier_on), [0.0, 0.0]
@@ -352,11 +942,14 @@ class DSLog:
                 scale = _HOP_SAMPLE_CAP / st[1]
                 st[0] *= scale
                 st[1] *= scale
+            self._meta_dirty = True
 
     def hop_measurement(
         self, lineage_id: int, stored: str, frontier_on: str
     ) -> float | None:
         """Measured pairs-per-query-box for one hop, or None if never run."""
+        if lineage_id < 0:
+            return self.views.hop_measurement(lineage_id, stored, frontier_on)
         st = self.hop_stats.get(self._hop_key(lineage_id, stored, frontier_on))
         if not st or st[1] <= 0:
             return None
@@ -375,7 +968,7 @@ class DSLog:
         self.arrays.setdefault(dst, ArrayDef(dst, rel.out_shape))
 
     # ------------------------------------------------------------------ #
-    # Operation registration (§III.A)
+    # Operation registration with automatic reuse (§III.A, §VI)
     # ------------------------------------------------------------------ #
     def register_operation(
         self,
@@ -388,34 +981,119 @@ class DSLog:
     ) -> _OpRecord:
         """Register one executed operation and its lineage.
 
-        ``capture()`` returns ``{(out_pos, in_pos): relation}``.  Automatic
-        reuse (the reference's default, ``reuse=None``/``True``) is not
-        ported yet, so the port takes ``reuse=False`` only and raises
-        otherwise; registration is atomic (a mid-op ``CycleError`` rolls
-        back the op's earlier entries).
+        ``capture()`` returns ``{(out_pos, in_pos): relation}``.  When reuse
+        is enabled (default) and a confirmed signature mapping exists, the
+        capture callable is *not* invoked — the stored tables are linked
+        instead (this is the paper's capture-bypass).
         """
-        if reuse is not False:
-            raise _not_ported(
-                "automatic reuse (register_operation without reuse=False)"
+        in_arrs, out_arrs = tuple(in_arrs), tuple(out_arrs)
+        in_shapes = tuple(self.arrays[a].shape for a in in_arrs)
+        out_shapes = tuple(self.arrays[a].shape for a in out_arrs)
+        dim_key = sig_key_dim(op_name, in_shapes + out_shapes, op_args)
+        gen_key = sig_key_gen(op_name, op_args)
+        shapes_token = in_shapes + out_shapes
+        rec = _OpRecord(op_name, in_arrs, out_arrs, op_args)
+        use_reuse = reuse if reuse is not None else True
+
+        pair_shapes = {}
+        for oi, oname in enumerate(out_arrs):
+            for ii, iname in enumerate(in_arrs):
+                pair_shapes[f"{oi}:{ii}"] = (
+                    self.arrays[oname].shape,
+                    self.arrays[iname].shape,
+                )
+
+        if use_reuse:
+            decision = self.predictor.lookup(
+                dim_key, gen_key, shapes_token, pair_shapes
             )
+            if decision.reused:
+                assert decision.tables is not None
+                try:
+                    for label, bwd in decision.tables.items():
+                        oi, ii = (int(x) for x in label.split(":"))
+                        entry = self._insert_entry(
+                            in_arrs[ii],
+                            out_arrs[oi],
+                            bwd,
+                            self._derive_forward(bwd)
+                            if self.store_forward
+                            else None,
+                            op_name,
+                            reused_from=decision.source,
+                        )
+                        rec.lineage_ids.append(entry.lineage_id)
+                except CycleError:
+                    self._rollback_op(rec)
+                    raise
+                rec.reused = decision.source
+                self.ops.append(rec)
+                self._wal_append_root("op", self._op_wal_meta(rec))
+                return rec
+
         if capture is None:
             raise ValueError(
                 f"no confirmed reuse mapping for {op_name} and no capture given"
             )
-        rec = _OpRecord(op_name, tuple(in_arrs), tuple(out_arrs), op_args)
         rels = capture()
+        captured_tables: dict[str, CompressedTable] = {}
         try:
             for (oi, ii), rel in rels.items():
                 entry = self.add_lineage(
-                    rec.in_arrs[ii], rec.out_arrs[oi], rel, op_name=op_name
+                    in_arrs[ii], out_arrs[oi], rel, op_name=op_name
                 )
                 rec.lineage_ids.append(entry.lineage_id)
+                captured_tables[f"{oi}:{ii}"] = entry.backward
         except CycleError:
-            for lid in reversed(rec.lineage_ids):
-                self._remove_entry(lid)
+            self._rollback_op(rec)
             raise
+        if use_reuse:
+            self.predictor.observe(dim_key, gen_key, shapes_token, captured_tables)
+            if self._wal is not None and not self._replaying:
+                labels = sorted(captured_tables)
+                self._wal_append_root(
+                    "obs",
+                    {
+                        "dim": dim_key,
+                        "gen": gen_key,
+                        "shapes": [list(s) for s in shapes_token],
+                        "labels": labels,
+                    },
+                    [
+                        captured_tables[label].serialize(compress=self.gzip)
+                        for label in labels
+                    ],
+                )
         self.ops.append(rec)
+        self._wal_append_root("op", self._op_wal_meta(rec))
         return rec
+
+    @staticmethod
+    def _op_wal_meta(rec: _OpRecord) -> dict:
+        return {
+            "op": rec.op_name,
+            "in": list(rec.in_arrs),
+            "out": list(rec.out_arrs),
+            "args": _json_safe(rec.op_args),
+            "lids": list(rec.lineage_ids),
+            "reused": rec.reused,
+        }
+
+    def _rollback_op(self, rec: _OpRecord) -> None:
+        """Registration is atomic: a mid-op CycleError (one pair of a
+        multi-entry op closes a cycle) must not leave the already-inserted
+        sibling entries behind."""
+        for lid in reversed(rec.lineage_ids):
+            self._remove_entry(lid)
+        rec.lineage_ids.clear()
+
+    def _derive_forward(self, bwd: CompressedTable) -> CompressedTable | None:
+        """Forward table from a reused backward table (via decompress only
+        when small; otherwise serve forward queries with the inverse join)."""
+        if bwd.n_rows <= 4096:
+            rel = bwd.decompress()
+            return compress(rel, "forward", self.compress_method)
+        return None
 
     # ------------------------------------------------------------------ #
     # Multi-hop queries (§V) — both forms served by the planner
@@ -441,12 +1119,14 @@ class DSLog:
         be a sequence of array names — the result is then a dict
         ``{name: QueryBox}``.  ``parallel=N`` executes independent plan
         branches on an N-thread pool.  ``batched`` picks the join engine
-        (default ``planner.batched``): packed frontier execution through the
-        :class:`~repro_torch.core.query.BatchedJoinExecutor` vs the per-hop
-        join loop — results are bit-identical either way.
+        (default ``planner.batched``): packed frontier execution through
+        the :class:`~repro_torch.core.query.BatchedJoinExecutor` vs the
+        per-hop join loop — results are bit-identical either way.
 
-        ``trace=True`` returns ``(result, QueryTrace)`` instead.  Tracing
-        never changes the answer.
+        ``trace=True`` returns ``(result, QueryTrace)`` instead: a span
+        tree (plan / hop / kernel launch / cache probe / view race) with
+        per-span wall time and instrument deltas.  Tracing never changes
+        the answer.
         """
         form = self._parse_query_args(args)
         if form[0] == "path":
@@ -518,6 +1198,8 @@ class DSLog:
             if tr is not None:
                 self._active_trace = prev
                 tr.finish()
+        # per-path query latency: cache hit / view shortcut / full plan,
+        # split by execution engine
         self.metrics.observe(
             "query_seconds", time.perf_counter() - t0, path=path_label, engine=engine
         )
@@ -528,8 +1210,8 @@ class DSLog:
         self, args, merge, parallel, batched, tr, engine
     ) -> tuple:
         """Body of :meth:`prov_query_batch`; returns ``(result, path)``
-        where ``path`` labels the query form (``"planned"`` graph form,
-        explicit-``"path"`` form)."""
+        where ``path`` labels how the answer was produced (``"cache"`` /
+        ``"view"`` / ``"planned"`` / explicit-``"path"`` form)."""
         form = self._parse_query_args(args)
         if form[0] == "path":
             _, path, queries, m_override = form
@@ -554,14 +1236,49 @@ class DSLog:
         if not queries:
             return ({t: [] for t in targets} if multi else []), "planned"
         boxes = self._as_boxes(src, queries)
+        # answer cache first, planner second: an exact repeat (same source,
+        # targets, and canonicalized cell boxes) never plans at all
+        ckey = self.views.cache_key(src, targets, boxes, merge)
+        hit = self.views.cache_get(ckey) if ckey is not None else None
+        if tr is not None:
+            tr.event(
+                "cache_probe",
+                kind="cache",
+                cacheable=ckey is not None,
+                hit=hit is not None,
+            )
+        if hit is not None:
+            return (hit if multi else hit[dst]), "cache"
+        if ckey is not None:
+            self.views.note_route(src, targets)
+        # plans are cell-independent: a hot route replans only after an
+        # invalidation, admission, or demotion changes the shortcut race
         with maybe_span(tr, "plan", kind="plan", form="graph") as sp:
-            plan = self.planner.plan(src, targets, frontier=boxes, batched=batched)
+            plan = self.views.plan_get(src, targets, batched)
+            sp.attrs["memo"] = plan is not None
+            if plan is None:
+                plan = self.planner.plan(
+                    src, targets, frontier=boxes, batched=batched
+                )
+                self.views.plan_put(src, targets, batched, plan)
             sp.attrs["est_cost"] = round(plan.est_cost, 3)
+        path_label = (
+            "view"
+            if any(
+                c.lineage_id < 0
+                for steps in plan.steps.values()
+                for step in steps
+                for c in step.choices
+            )
+            else "planned"
+        )
         with maybe_span(tr, "execute", kind="execute", engine=engine):
             out = self.planner.execute(
                 plan, boxes, merge=merge, parallel=parallel, batched=batched
             )
-        return (out if multi else out[dst]), "planned"
+        if ckey is not None:
+            self.views.cache_put(ckey, out, src, targets, plan)
+        return (out if multi else out[dst]), path_label
 
     def _as_boxes(
         self, name: str, queries: Sequence["np.ndarray | QueryBox"]
@@ -605,8 +1322,332 @@ class DSLog:
         )
 
     # ------------------------------------------------------------------ #
+    # Persistence (manifest v2: lazy handles, dirty tracking, reuse state)
+    # ------------------------------------------------------------------ #
+    def save(self, checkpoint_wal: bool = True) -> None:
+        """Write the catalog under ``root``, incrementally.
+
+        Only entries added since the last ``save()``/``load()`` have their
+        blobs (and index sidecars) written; already-persisted entries keep
+        their files and manifest records verbatim — a lazily loaded entry is
+        never even deserialized by a save.  The JSON manifest itself is
+        always rewritten (it is small).
+
+        With a WAL attached this is a checkpoint: the manifest records the
+        log's end LSN and the log truncates afterwards.  ``checkpoint_wal=
+        False`` defers the truncation (the log's records stay, and replay
+        skips them through the recorded LSN).
+        """
+        if not self.root:
+            raise ValueError("DSLog opened without a root directory")
+        meta = {
+            "version": _MANIFEST_VERSION,
+            "arrays": {n: list(a.shape) for n, a in self.arrays.items()},
+            "lineage": [],
+            "next_id": self._next_id,
+            "ops": [
+                {
+                    "op": op.op_name,
+                    "in": list(op.in_arrs),
+                    "out": list(op.out_arrs),
+                    "args": _json_safe(op.op_args),
+                    "lineage_ids": list(op.lineage_ids),
+                    "reused": op.reused,
+                }
+                for op in self.ops
+            ],
+            "versions": dict(self._versions),
+            "hops": {k: list(v) for k, v in self.hop_stats.items()},
+            "hop_decay": self.hop_decay,
+        }
+        if self._wal is not None:
+            # checkpoint: make every logged record durable, stamp the end
+            # LSN into the manifest, and truncate the log afterwards —
+            # a crash between the two replays nothing twice (LSN skip).
+            self.commit()
+            meta["wal_lsn"] = self._wal.end_lsn
+        for e in self.lineage.values():
+            rec = self._persisted.get(e.lineage_id)
+            if rec is None or e.lineage_id in self._dirty:
+                rec = self._write_entry(e)
+                self._persisted[e.lineage_id] = rec
+            meta["lineage"].append(rec)
+        self._dirty.clear()
+
+        if self._predictor_chunk is None or self.predictor.dirty:
+            self._predictor_chunk = self._write_predictor()
+        meta["predictor"] = self._predictor_chunk
+        meta["views"] = self.views.manifest_chunk(self._write_view_blob)
+        _atomic_write(
+            os.path.join(self.root, "answers.json"),
+            json.dumps(self.views.cache_chunk()),
+        )
+        _atomic_write(
+            os.path.join(self.root, "autotune.json"),
+            json.dumps(self.autotune.to_manifest()),
+        )
+        self.autotune.dirty = False
+        # telemetry snapshot rides every checkpoint (write-only sidecar:
+        # load() never restores it, counters restart from zero)
+        _atomic_write(
+            os.path.join(self.root, "telemetry.json"),
+            json.dumps(telemetry_snapshot(self)),
+        )
+
+        payload = json.dumps(meta)
+        _atomic_write(os.path.join(self.root, "catalog.json"), payload)
+        self._bump("manifests_written")
+        self._bump("bytes_written", len(payload))
+        self._meta_dirty = False
+        # Truncate only as the leased owner: a save() on a merely
+        # load()-ed store must not cut a log a live writer may be appending
+        # to — its records stay, and replay skips them via the wal_lsn just
+        # recorded.
+        if self._wal is not None and checkpoint_wal and self._lease is not None:
+            self._wal_lsn = self._wal.checkpoint()
+
+    def _write_entry(self, e: LineageEntry) -> dict:
+        fn = f"lineage_{e.lineage_id}.prvc"
+        blob = e.backward.serialize(compress=self.gzip)
+        _write_blob(os.path.join(self.root, fn), blob)
+        self._bump("tables_written")
+        self._bump("bytes_written", len(blob))
+        rec = {
+            "id": e.lineage_id,
+            "src": e.src,
+            "dst": e.dst,
+            "file": fn,
+            "op": e.op_name,
+            "reused": e.reused_from,
+            "rows": e.backward.n_rows,
+            "fwd": None,
+            "fwd_rows": None,
+            "idx": self._save_index(e.backward, f"lineage_{e.lineage_id}.idx"),
+            "fwd_idx": None,
+        }
+        if e.forward is not None:
+            fwd_fn = f"lineage_{e.lineage_id}_fwd.prvc"
+            blob = e.forward.serialize(compress=self.gzip)
+            _write_blob(os.path.join(self.root, fwd_fn), blob)
+            self._bump("tables_written")
+            self._bump("bytes_written", len(blob))
+            rec["fwd"] = fwd_fn
+            rec["fwd_rows"] = e.forward.n_rows
+            rec["fwd_idx"] = self._save_index(
+                e.forward, f"lineage_{e.lineage_id}_fwd.idx"
+            )
+        return rec
+
+    def _write_view_blob(self, fn: str, table: CompressedTable) -> None:
+        blob = table.serialize(compress=self.gzip)
+        _write_blob(os.path.join(self.root, fn), blob)
+        self._bump("tables_written")
+        self._bump("bytes_written", len(blob))
+
+    def _view_lsns(self) -> dict[str, int]:
+        """End LSN of every WAL a view's route could be invalidated
+        through — for a single store, just its own log."""
+        return {"": self._wal.end_lsn if self._wal is not None else 0}
+
+    def _write_predictor(self) -> dict:
+        assert self.root is not None
+        root = self.root
+
+        def save_table(key: str, label: str, tbl: CompressedTable) -> str:
+            fn = _sig_blob_name(key, label)
+            blob = tbl.serialize(compress=self.gzip)
+            _write_blob(os.path.join(root, fn), blob)
+            self._bump("sig_tables_written")
+            self._bump("bytes_written", len(blob))
+            return fn
+
+        return self.predictor.state_manifest(save_table)
+
+    def _save_index(self, table: CompressedTable, fn: str) -> str | None:
+        """Persist the key index next to its table: already-built indexes are
+        always written; large tables get one built eagerly so reloads start
+        warm.  Small, index-less tables write nothing (dense is fine)."""
+        assert self.root is not None
+        cached = table.cached_key_index()
+        if cached is None and table.n_rows < _INDEX_PERSIST_MIN_ROWS:
+            return None
+        idx = cached if cached is not None else table.key_index()
+        blob = idx.to_bytes()
+        _write_blob(os.path.join(self.root, fn), blob)
+        self._bump("bytes_written", len(blob))
+        return fn
+
+    @staticmethod
+    def _load_index(root: str, fn: str | None, table: CompressedTable) -> None:
+        if not fn:
+            return
+        path = os.path.join(root, fn)
+        if not os.path.exists(path):
+            return
+        try:
+            with open(path, "rb") as f:
+                table.attach_key_index(
+                    IntervalIndex.from_bytes(f.read(), table.key_lo, table.key_hi)
+                )
+        except ValueError:
+            pass  # stale sidecar: fall back to lazy rebuild
+
+    def _make_handle(self, fn: str, idx_fn: str | None, rows) -> TableHandle:
+        assert self.root is not None
+        root = self.root
+
+        def load() -> CompressedTable:
+            with open(os.path.join(root, fn), "rb") as f:
+                t = CompressedTable.deserialize(f.read())
+            DSLog._load_index(root, idx_fn, t)
+            return t
+
+        def on_load() -> None:
+            # fired from TableHandle.get under arbitrary threads (parallel
+            # plan execution) — must take the stats lock like every meter
+            self._bump("tables_loaded")
+
+        return TableHandle(load, None if rows is None else int(rows), on_load)
+
+    @staticmethod
+    def load(root: str, device="cuda") -> "DSLog":
+        """Reopen a catalog without deserializing any table blob.
+
+        Arrays, the lineage DAG, op records, and the reuse-predictor state
+        load eagerly (they are small JSON plus the few signature tables);
+        every lineage table becomes a lazy handle that resolves on first
+        touch — ``io_stats["tables_loaded"]`` counts those resolutions.
+        Manifests from v1 (pre-graph) load too; they simply have no ops or
+        predictor state to restore.
+
+        **Crash recovery** happens here: when a write-ahead log is present
+        (the store was opened with :meth:`open`), its tail past the
+        manifest's checkpoint LSN is replayed — torn trailing records
+        truncated — so a store whose writer died mid-ingest reopens equal
+        to a synchronous-save oracle of every durably logged mutation.  A
+        crash *before the first checkpoint* leaves a WAL with no manifest
+        at all; that loads too, from an empty catalog plus replay.
+        ``device`` is the store's (see the class doc).
+        """
+        log = DSLog(root=root, device=device)
+        manifest = os.path.join(root, "catalog.json")
+        if not os.path.exists(manifest) and os.path.exists(
+            os.path.join(root, WAL_FILENAME)
+        ):
+            log._attach_wal()
+            return log
+        with open(manifest) as f:
+            meta = json.load(f)
+        if meta.get("sharded"):
+            raise ValueError(
+                f"{root!r} holds a sharded catalog root; sharded stores are "
+                "not ported to repro_torch yet (ROADMAP.md §1 'Still to "
+                "port' item 4)"
+            )
+        version = int(meta.get("version", 1))
+        for n, shp in meta["arrays"].items():
+            log.define_array(n, tuple(shp))
+        for rec in meta["lineage"]:
+            bwd = log._make_handle(rec["file"], rec.get("idx"), rec.get("rows"))
+            fwd = None
+            if rec["fwd"]:
+                fwd = log._make_handle(
+                    rec["fwd"], rec.get("fwd_idx"), rec.get("fwd_rows")
+                )
+            e = LineageEntry(
+                rec["id"], rec["src"], rec["dst"], bwd, fwd, rec["op"], rec["reused"]
+            )
+            log.lineage[e.lineage_id] = e
+            log.by_pair.setdefault((e.src, e.dst), []).append(e.lineage_id)
+            log._persisted[e.lineage_id] = rec
+        log.graph = LineageGraph.from_pairs(log.by_pair)
+        log._next_id = meta["next_id"]
+        if version >= 2:
+            for op in meta.get("ops", []):
+                log.ops.append(
+                    _OpRecord(
+                        op["op"],
+                        tuple(op["in"]),
+                        tuple(op["out"]),
+                        op["args"],
+                        list(op["lineage_ids"]),
+                        op["reused"],
+                    )
+                )
+            chunk = meta.get("predictor")
+            if chunk is not None:
+
+                def load_table(fn: str) -> CompressedTable:
+                    with open(os.path.join(root, fn), "rb") as f:
+                        return CompressedTable.deserialize(f.read())
+
+                log.predictor = ReusePredictor.from_manifest(chunk, load_table)
+                log._predictor_chunk = chunk
+        log._versions = {
+            k: int(v) for k, v in meta.get("versions", {}).items()
+        }
+        with log._stats_lock:
+            log.hop_stats.update(
+                {k: [float(x) for x in v] for k, v in meta.get("hops", {}).items()}
+            )
+        log.hop_decay = float(meta.get("hop_decay", log.hop_decay))
+        log._meta_dirty = False
+        log._wal_lsn = int(meta.get("wal_lsn", 0))
+        # views + cached answers restore BEFORE WAL replay: replayed
+        # entry/drop/dirty records then fire the same precise invalidation
+        # they did live, so nothing stale survives recovery
+        log.views.load_chunk(
+            meta.get("views"),
+            lambda fn, rows: log._make_handle(fn, None, rows),
+        )
+        answers = os.path.join(root, "answers.json")
+        if os.path.exists(answers):
+            try:
+                with open(answers) as f:
+                    log.views.load_cache_chunk(json.load(f))
+            except (ValueError, KeyError):
+                pass  # torn/stale sidecar: start with a cold cache
+        autotune = os.path.join(root, "autotune.json")
+        if os.path.exists(autotune):
+            try:
+                with open(autotune) as f:
+                    log.autotune.load_manifest(json.load(f))
+            except ValueError:
+                pass  # torn sidecar: start with a cold geometry table
+        if os.path.exists(os.path.join(root, WAL_FILENAME)):
+            log._attach_wal()
+        return log
+
+    # ------------------------------------------------------------------ #
+    # Garbage collection (persistence v2 vacuum)
+    # ------------------------------------------------------------------ #
+    def compact(self, save: bool = True) -> dict[str, int]:
+        """Vacuum blobs no longer referenced by the catalog.
+
+        Dirty-tracked saves never delete files, so dropped entries
+        (:meth:`drop_lineage`) and re-saved/rejected predictor signatures
+        leave stale ``lineage_*.prvc``/``.idx`` and ``sig_*.prvc`` blobs
+        behind.  ``compact()`` saves first (unless ``save=False``, for
+        callers that just synced), then deletes every catalog-owned file the
+        current manifest does not reference.  Returns
+        ``{"files_removed": n, "bytes_reclaimed": b}``.
+        """
+        if not self.root:
+            raise ValueError("DSLog opened without a root directory")
+        if save:
+            self.save()
+        for lid in list(self._persisted):
+            if lid not in self.lineage:
+                del self._persisted[lid]
+        referenced = manifest_referenced_files(
+            self._persisted.values(), self._predictor_chunk
+        )
+        referenced |= self.views.blob_files()
+        return _vacuum_dir(self.root, referenced)
+
+    # ------------------------------------------------------------------ #
     def storage_bytes(self) -> int:
-        """Packed size of every stored table."""
+        """Packed size of every stored table (forces lazy blobs to load)."""
         total = 0
         for e in self.lineage.values():
             total += e.backward.nbytes()

@@ -128,19 +128,26 @@ def compress_both(
 # --------------------------------------------------------------------------- #
 # Step 1
 # --------------------------------------------------------------------------- #
-def _step1_pass(key_lo, key_hi, val_lo, val_hi, val_ref, i):
-    """Range-encode value attribute ``i``; all other columns must match."""
-    n, m = val_lo.shape
-    if n == 0:
-        return key_lo, key_hi, val_lo, val_hi, val_ref
+def _step1_rows(key_lo, val_lo, val_hi, i):
+    """The rows one step-1 pass merges, sorted: ``(order, cols, lo, hi)``,
+    where ``cols`` are every other column (the group key) and ``lo``/``hi``
+    value attribute ``i``, all in sorted order."""
     others = [key_lo[:, j] for j in range(key_lo.shape[1])]
-    for k in range(m):
+    for k in range(val_lo.shape[1]):
         if k == i:
             continue
         others += [val_lo[:, k], val_hi[:, k]]
     order = lexsort_rows(others + [val_lo[:, i]])
-    group = _group_ids([c[order] for c in others], n)
-    starts, lo, hi = coalesce_1d(group, val_lo[order, i], val_hi[order, i])
+    return order, [c[order] for c in others], val_lo[order, i], val_hi[order, i]
+
+
+def _step1_pass(key_lo, key_hi, val_lo, val_hi, val_ref, i):
+    """Range-encode value attribute ``i``; all other columns must match."""
+    n = val_lo.shape[0]
+    if n == 0:
+        return key_lo, key_hi, val_lo, val_hi, val_ref
+    order, cols, lo, hi = _step1_rows(key_lo, val_lo, val_hi, i)
+    starts, lo, hi = coalesce_1d(_group_ids(cols, n), lo, hi)
     sel = order[starts]
     key_lo, key_hi = key_lo[sel], key_hi[sel]
     val_lo, val_hi, val_ref = val_lo[sel].copy(), val_hi[sel].copy(), val_ref[sel]

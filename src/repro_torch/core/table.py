@@ -1,9 +1,8 @@
 """Compressed lineage table produced by ProvRC (paper §IV).
 
 The port of ``repro.core.table``: the same fields, dtypes and
-``serialize()`` bytes, so either package reads the other's tables.  The
-reference's lazy ``TableHandle`` serves persisted stores and comes with
-save/load (ROADMAP.md §1 "Still to port" item 2).
+``serialize()`` bytes, so either package reads the other's tables, and the
+same lazy :class:`TableHandle` over a persisted blob.
 
 Layout
 ------
@@ -39,13 +38,15 @@ import io
 import json
 import zlib
 from dataclasses import dataclass, field, replace
+from typing import Callable
 
 import numpy as np
 
+from . import _locks
 from .index import IntervalIndex, interval_stats
 from .relation import LineageRelation
 
-__all__ = ["CompressedTable", "from_reference_arrays"]
+__all__ = ["CompressedTable", "TableHandle", "from_reference_arrays"]
 
 _MAGIC = b"PRVC1\n"
 
@@ -398,6 +399,59 @@ class CompressedTable:
         else:  # forward: keys are the *input* axes
             rel = LineageRelation(self.val_shape, self.key_shape, inn, out)
         return rel.canonical()
+
+
+class TableHandle:
+    """Lazy handle to a persisted :class:`CompressedTable` blob.
+
+    The catalog's manifest records row counts and blob file names; the blob
+    itself stays on disk until something actually needs the intervals.
+    ``get()`` resolves (and memoizes) the table via the supplied loader,
+    firing ``on_load`` exactly once — the catalog uses that callback for its
+    lazy-I/O counters, and tests assert on them to prove a reload touched
+    only the tables a query needed.
+
+    ``n_rows`` may be ``None`` for pre-v2 manifests that did not record row
+    counts; reading :attr:`rows` then forces the load.
+    """
+
+    __slots__ = ("_loader", "_table", "_on_load", "_lock", "n_rows")
+
+    def __init__(
+        self,
+        loader: "Callable[[], CompressedTable]",
+        n_rows: int | None = None,
+        on_load: "Callable[[], None] | None" = None,
+    ):
+        self._loader = loader
+        self._table: CompressedTable | None = None
+        self._on_load = on_load
+        self._lock = _locks.new_lock("table._lock")
+        self.n_rows = n_rows
+
+    @property
+    def loaded(self) -> bool:
+        return self._table is not None
+
+    @property
+    def rows(self) -> int:
+        """Row count without loading when the manifest recorded it."""
+        if self.n_rows is not None:
+            return int(self.n_rows)
+        return self.get().n_rows
+
+    def get(self) -> CompressedTable:
+        if self._table is None:
+            # parallel plan execution may race two threads onto one lazy
+            # blob; the lock keeps the load (and its counter) single-fire
+            with self._lock:
+                if self._table is None:
+                    table = self._loader()
+                    self.n_rows = table.n_rows
+                    if self._on_load is not None:
+                        self._on_load()
+                    self._table = table
+        return self._table
 
 
 def from_reference_arrays(

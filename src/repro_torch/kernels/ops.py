@@ -1,4 +1,4 @@
-"""Public wrappers around the CUDA range-join kernels.
+"""Public wrappers around the CUDA kernels (range joins, run boundaries).
 
 The port of ``repro.kernels.ops``.  These handle packing/padding from the
 natural numpy layouts used by ``repro_torch.core`` into the 128-lane int32
@@ -13,9 +13,6 @@ The packers are int32: coordinates outside the int32 range cannot ride the
 kernel path (they would silently wrap).  ``fits_int32`` is the gate callers
 use to route oversized joins to the numpy dense path; handing out-of-range
 values to a packer raises.
-
-``run_boundaries`` (the ``run_boundaries_packed`` kernel) is still to be
-ported: ProvRC's encoder does not call it (ROADMAP §2).
 """
 
 from __future__ import annotations
@@ -31,8 +28,10 @@ from .range_join import (
     range_join_mask,
     range_join_tile_masks,
 )
+from .run_boundary import run_boundaries_packed
 
 __all__ = [
+    "run_boundaries",
     "range_join_pairs",
     "segmented_range_join_pairs",
     "resolve_device",
@@ -75,6 +74,49 @@ def _require_int32(*arrays: np.ndarray) -> None:
             "kernel path (they would wrap); route this join to the numpy "
             "dense path (fits_int32 gates this)"
         )
+
+
+def run_boundaries(
+    group_cols: list[np.ndarray],
+    lo: np.ndarray,
+    hi: np.ndarray,
+    block_rows: int = 1024,
+    device: "str | torch.device" = "cuda",
+) -> np.ndarray:
+    """Boundary flags for sorted rows; drop-in for the numpy hot pass.
+
+    ``group_cols`` are the equality columns, ``lo``/``hi`` the merge-column
+    interval.  Values must fit int32 (array indices always do).  The table
+    is packed on the host, uploaded to ``device`` and flagged there by the
+    ``run_boundaries_packed`` kernel (its plain version on ``"cpu"``); the
+    flags come back as a numpy bool array.
+    """
+    dev = resolve_device(device)
+    packed = _pack_run_table(group_cols, lo, hi)
+    flags = run_boundaries_packed(
+        torch.from_numpy(packed).to(dev),
+        n_keys=len(group_cols),
+        block_rows=block_rows,
+    )
+    return flags.cpu().numpy().astype(bool)
+
+
+def _pack_run_table(
+    group_cols: list[np.ndarray], lo: np.ndarray, hi: np.ndarray
+) -> np.ndarray:
+    """Pack sorted rows into the run-boundary kernel's ``[N, 128]`` int32
+    layout: key lanes ``[0, n_keys)``, then ``lo``, then ``hi``."""
+    n = lo.shape[0]
+    n_keys = len(group_cols)
+    if n_keys + 2 > LANES:
+        raise ValueError(f"{n_keys} group columns do not fit one {LANES}-lane tile")
+    _require_int32(*group_cols, lo, hi)
+    packed = np.zeros((n, LANES), np.int32)
+    for c, col in enumerate(group_cols):
+        packed[:, c] = col.astype(np.int32)
+    packed[:, n_keys] = lo.astype(np.int32)
+    packed[:, n_keys + 1] = hi.astype(np.int32)
+    return packed
 
 
 def _nonzero_rows(mask: torch.Tensor) -> np.ndarray:

@@ -1,13 +1,13 @@
 """Telemetry for the port: the metrics registry and per-query tracing.
 
-``repro_torch.obs`` mirrors ``repro.obs`` without ``export`` (the
-``telemetry.json`` sidecar and Prometheus exposition ride persistence,
-which the port has not reached yet):
+``repro_torch.obs`` mirrors ``repro.obs``:
 
 - :mod:`repro_torch.obs.metrics` — typed counters/gauges/histograms behind
   one internally-locked :class:`MetricsRegistry`; ``DSLog.io_stats`` is a
   live read-only view over it.
 - :mod:`repro_torch.obs.trace` — off-by-default per-query span trees.
+- :mod:`repro_torch.obs.export` — ``telemetry.json`` snapshot schema,
+  Prometheus text exposition, and the ``health()`` report.
 """
 
 from repro_torch.obs.metrics import (
@@ -17,6 +17,14 @@ from repro_torch.obs.metrics import (
     StatsView,
 )
 from repro_torch.obs.trace import QueryTrace, Span, maybe_span
+from repro_torch.obs.export import (
+    TELEMETRY_SCHEMA,
+    health,
+    parse_prometheus,
+    render_prometheus,
+    telemetry_snapshot,
+    validate_telemetry,
+)
 
 __all__ = [
     "Histogram",
@@ -26,4 +34,10 @@ __all__ = [
     "QueryTrace",
     "Span",
     "maybe_span",
+    "TELEMETRY_SCHEMA",
+    "health",
+    "parse_prometheus",
+    "render_prometheus",
+    "telemetry_snapshot",
+    "validate_telemetry",
 ]

@@ -20,6 +20,7 @@ from repro_torch.core import capture as C
 from repro_torch.kernels import ops
 from repro_torch.kernels import range_join as rj
 from repro_torch.kernels import ref
+from repro_torch.kernels import run_boundary as rb
 
 SEED = 20240527
 pytestmark = pytest.mark.gpu
@@ -119,3 +120,86 @@ def test_dslog_on_card_equals_cpu(cuda_device, rels):
             assert got.lo.tobytes() == want.lo.tobytes()
             assert got.hi.tobytes() == want.hi.tobytes()
     assert rj.range_join_mask.launches + rj.range_join_tile_masks.launches > before
+
+
+def _sorted_table(rng, n, n_keys):
+    p = np.zeros((n, 128), np.int32)
+    for c in range(n_keys):
+        p[:, c] = np.sort(rng.integers(0, 3, n))
+    lo = np.sort(rng.integers(0, max(n // 2, 2), n))
+    p[:, n_keys] = lo
+    p[:, n_keys + 1] = lo + rng.integers(0, 3, n)
+    return p
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1024, 1025])
+@pytest.mark.parametrize("n_keys", [0, 1, 4, 126])
+def test_run_boundary_kernel_equals_plain(cuda_device, n, n_keys):
+    rng = np.random.default_rng(SEED + n + n_keys)
+    p = torch.from_numpy(_sorted_table(rng, n, n_keys)).to(cuda_device)
+    want = ref.run_boundaries_ref(p, n_keys)
+    before = rb.run_boundaries_packed.launches
+    for block_rows in (256, 1024):
+        got = rb.run_boundaries_packed(p, n_keys=n_keys, block_rows=block_rows)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.uint8 and torch.equal(got, want)
+    assert rb.run_boundaries_packed.launches == before + 2
+
+
+def test_run_boundary_kernel_edge_rows(cuda_device):
+    """Row 0 of an all-INT32_MIN table, and the int32 wrap of hi + 1."""
+    i32 = np.iinfo(np.int32)
+    edge = np.full((3, 128), i32.min, np.int32)
+    wrap = np.zeros((4, 128), np.int32)
+    wrap[:, 1] = [0, 5, i32.min, i32.min + 1]
+    wrap[:, 2] = i32.max
+    for p, n_keys, expect in ((edge, 0, [1, 0, 0]), (edge, 1, [1, 0, 0]),
+                              (wrap, 1, [1, 1, 0, 1])):
+        t = torch.from_numpy(p).to(cuda_device)
+        got = rb.run_boundaries_packed(t, n_keys=n_keys)
+        assert got.cpu().tolist() == expect
+        assert torch.equal(got, ref.run_boundaries_ref(t, n_keys))
+    empty = torch.zeros((0, 128), dtype=torch.int32, device=cuda_device)
+    assert rb.run_boundaries_packed(empty, n_keys=1).shape == (0,)
+
+
+def test_run_boundaries_wrapper_on_card_equals_cpu(cuda_device):
+    rng = np.random.default_rng(SEED)
+    g = np.sort(rng.integers(0, 12, 3000))
+    lo = rng.integers(0, 50, 3000)
+    order = np.lexsort((lo, g))
+    g, lo = g[order], lo[order]
+    want = ops.run_boundaries([g], lo, lo + 1, device="cpu")
+    got = ops.run_boundaries([g], lo, lo + 1, device=cuda_device)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_durable_store_on_card_equals_cpu(cuda_device, tmp_path):
+    """DSLog.open on the card: WAL replay, views and the answer cache give
+    the CPU store's answers, and the two stores write the same files."""
+    rels = [C.flip_lineage((24, 20), 0), C.roll_lineage((24, 20), 3, 0),
+            C.identity_lineage((24, 20)), C.flip_lineage((24, 20), 1)]
+    answers = {}
+    for dev in ("cpu", cuda_device):
+        root = tmp_path / str(dev)
+        log = core.DSLog.open(str(root), durability="manual", device=dev)
+        log.define_array("a0", (24, 20))
+        for k, rel in enumerate(rels):
+            log.define_array(f"a{k + 1}", (24, 20))
+            log.register_operation(f"op{k}", [f"a{k}"], [f"a{k + 1}"],
+                                   capture=lambda r=rel: {(0, 0): r})
+        log.commit()
+        log.close(checkpoint=False)
+        log = core.DSLog.load(str(root), device=dev)
+        rng = np.random.default_rng(SEED)
+        got = [log.prov_query("a4", "a0", rng.integers(0, 20, (3, 2))) for _ in range(6)]
+        got.append(log.prov_query("a4", "a0", np.array([[1, 2]])))
+        got.append(log.prov_query("a4", "a0", np.array([[1, 2]])))
+        assert log.io_stats["views_materialized"] == 1 and log.io_stats["cache_hits"] == 1
+        answers[str(dev)] = got
+        log.save()
+    for g, w in zip(answers["cuda"], answers["cpu"]):
+        assert g.lo.tobytes() == w.lo.tobytes() and g.hi.tobytes() == w.hi.tobytes()
+    for fn in sorted(p.name for p in (tmp_path / "cpu").iterdir()):
+        if fn not in ("telemetry.json", "autotune.json"):
+            assert (tmp_path / "cpu" / fn).read_bytes() == (tmp_path / "cuda" / fn).read_bytes(), fn

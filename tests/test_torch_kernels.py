@@ -14,8 +14,12 @@ import torch
 
 import repro.kernels.ops as jops
 import repro.kernels.range_join as jrj
+import repro.kernels.ref as jref
+import repro.kernels.run_boundary as jrb
 import repro_torch.kernels.ops as tops
 import repro_torch.kernels.range_join as trj
+import repro_torch.kernels.ref as tref
+import repro_torch.kernels.run_boundary as trb
 
 SEED = 20240527
 
@@ -229,3 +233,122 @@ def test_cuda_device_without_gpu_raises():
         tops.segmented_range_join_pairs([(lo, hi, lo, hi)])
     with pytest.raises(ValueError, match="unsupported device"):
         tops.resolve_device("meta")
+
+
+# --------------------------------------------------------------------------- #
+# run_boundaries_packed
+# --------------------------------------------------------------------------- #
+I32_MIN, I32_MAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+
+
+def _sorted_table(kind, n, nk, seed):
+    """The reference's run-boundary sweeps (``tests/test_kernels.py``):
+    ``keys`` sorted keys with lo <= hi, ``points`` lo == hi, ``pads`` one
+    key at row counts off the block grid."""
+    r = np.random.default_rng(seed)
+    p = np.zeros((n, 128), np.int32)
+    if kind == "keys":
+        for c in range(nk):
+            p[:, c] = np.sort(r.integers(0, 7, n))
+        lo = np.sort(r.integers(0, n // 2, n))
+        hi = lo + r.integers(0, 3, n)
+    elif kind == "points":
+        for c in range(nk):
+            p[:, c] = np.sort(r.integers(0, 5, n))
+        lo = hi = np.sort(r.integers(0, 40, n))
+    else:
+        p[:, 0] = np.sort(r.integers(0, 6, n))
+        lo = np.sort(r.integers(0, max(n // 3, 2), n))
+        hi = lo + r.integers(0, 3, n)
+    p[:, nk] = lo
+    p[:, nk + 1] = hi
+    return p
+
+
+@pytest.mark.parametrize("kind,n,nk,block", [
+    ("keys", 512, 1, 128), ("keys", 1024, 2, 256), ("keys", 2048, 4, 512),
+    ("keys", 4096, 8, 1024), ("keys", 1024, 1, 1024), ("keys", 3072, 6, 256),
+    ("points", 256, 1, 256), ("points", 512, 3, 256), ("points", 1024, 5, 256),
+    ("pads", 1, 1, 256), ("pads", 255, 1, 256), ("pads", 1024, 1, 256),
+    ("pads", 1025, 1, 256),
+])
+def test_run_boundaries_match_pallas_and_oracle(kind, n, nk, block):
+    p = _sorted_table(kind, n, nk, SEED + n + nk)
+    want = np.asarray(jref.run_boundaries_ref(jnp.asarray(p), nk))
+    pallas = np.asarray(
+        jrb.run_boundaries_packed(jnp.asarray(p), n_keys=nk, block_rows=block, interpret=True)
+    )
+    np.testing.assert_array_equal(pallas, want)
+    got = trb.run_boundaries_packed(torch.from_numpy(p), n_keys=nk, block_rows=block)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (n,)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.uint8))
+
+
+def test_run_boundaries_wrapper_matches_reference():
+    """The inputs of the reference's ``test_run_boundaries_wrapper_vs_numpy``,
+    with ``hi = lo`` and with ``hi > lo``."""
+    rng = np.random.default_rng(SEED)
+    n = 3000
+    g = np.sort(rng.integers(0, 12, n)).astype(np.int64)
+    lo = rng.integers(0, 50, n).astype(np.int64)
+    order = np.lexsort((lo, g))
+    g, lo = g[order], lo[order]
+    for hi in (lo, lo + rng.integers(0, 3, n)):
+        want = jops.run_boundaries([g], lo, hi, block_rows=512, interpret=True)
+        got = tops.run_boundaries([g], lo, hi, block_rows=512, device="cpu")
+        assert got.dtype == np.bool_
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="int32"):
+        tops.run_boundaries([g + 2**31], lo, lo, device="cpu")
+    empty = np.zeros(0, np.int64)
+    assert tops.run_boundaries([empty], empty, empty, device="cpu").shape == (0,)
+
+
+def test_run_boundaries_hi_wrap_matches_reference():
+    """``hi[t-1] = INT32_MAX``: ``hi + 1`` wraps to INT32_MIN in both
+    packages, so any ``lo > INT32_MIN`` reads as a gap."""
+    p = np.zeros((4, 128), np.int32)
+    p[:, 1] = [0, 5, I32_MIN, I32_MIN + 1]
+    p[:, 2] = [I32_MAX, I32_MAX, I32_MAX, I32_MAX]
+    want = np.asarray(jref.run_boundaries_ref(jnp.asarray(p), 1))
+    pallas = np.asarray(jrb.run_boundaries_packed(jnp.asarray(p), n_keys=1, interpret=True))
+    np.testing.assert_array_equal(want, [1, 1, 0, 1])
+    np.testing.assert_array_equal(pallas, want)
+    got = trb.run_boundaries_packed(torch.from_numpy(p), n_keys=1)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("nk", [0, 1])
+def test_run_boundaries_int32_min_row0_follows_oracle(nk):
+    """All lanes INT32_MIN: row 0 starts a run.  The port follows the
+    reference oracle ``run_boundaries_ref`` and the kernel's docstring; the
+    reference Pallas kernel compares row 0 with a sentinel row of INT32_MIN
+    (``src/repro/kernels/run_boundary.py:83``), which this row equals, and
+    returns 0 there — the divergence ROADMAP.md §3 records."""
+    p = np.full((3, 128), I32_MIN, np.int32)
+    want = np.asarray(jref.run_boundaries_ref(jnp.asarray(p), nk))
+    np.testing.assert_array_equal(want, [1, 0, 0])
+    got = trb.run_boundaries_packed(torch.from_numpy(p), n_keys=nk)
+    np.testing.assert_array_equal(got.numpy(), want)
+    pallas = np.asarray(jrb.run_boundaries_packed(jnp.asarray(p), n_keys=nk, interpret=True))
+    np.testing.assert_array_equal(pallas, [0, 0, 0])
+
+
+def test_run_boundaries_rejects_malformed_tables():
+    p = torch.zeros((4, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="128 lanes"):
+        trb.run_boundaries_packed(p[:, :64].contiguous(), n_keys=1)
+    with pytest.raises(ValueError, match="int32"):
+        trb.run_boundaries_packed(p.long(), n_keys=1)
+    with pytest.raises(ValueError, match="block_rows"):
+        trb.run_boundaries_packed(p, n_keys=1, block_rows=0)
+    for n_keys in (-1, 127):
+        with pytest.raises(ValueError, match="group columns"):
+            trb.run_boundaries_packed(p, n_keys=n_keys)
+    with pytest.raises(ValueError, match="group columns"):
+        tops.run_boundaries([np.zeros(4)] * 127, np.zeros(4), np.zeros(4), device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tops.run_boundaries([np.zeros(4)], np.zeros(4), np.zeros(4))
+    assert trb.run_boundaries_packed(p[:0], n_keys=2).shape == (0,)
+    np.testing.assert_array_equal(tref.run_boundaries_ref(p, 2).numpy(), [1, 0, 0, 0])
