@@ -5,15 +5,22 @@ Run from the repository root on a machine with an NVIDIA Hopper card and
 the CUDA toolkit::
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --before OLD/src/repro_torch/kernels/csrc  # also time an earlier commit's kernels
 
 Phases:
 
-1. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (with ``--before``, also those of an earlier commit, symbols renamed);
 2. hold each kernel against its plain PyTorch version on the card (exact
-   equality) and time, as medians over CUDA events: the kernel's own
-   launch into a preallocated output (``ms``), the wrapper a caller uses
-   (``wrapper_ms``: output allocation, operand and schedule checks, launch)
-   and the plain version (``plain_ms``), on made-up operands;
+   equality; the mask kernel also over row counts and widths around its
+   block tile, boxes that hold 0 and 1, and raw launches at every output
+   alignment) and time, as medians of 9 runs: the kernel (``ms``: one CUDA
+   event pair around K back-to-back raw launches into a preallocated
+   output, divided by K, see ``KernelTimer``; ``ms_before`` the earlier
+   commit's kernel, timed in turns with it), the wrapper a caller uses
+   (``wrapper_ms``: one call per event pair, with output allocation,
+   operand and schedule checks and the host's launch gap) and the plain
+   version (``plain_ms``, one call per event pair), on made-up operands;
 3. DSLog ingest + explicit-path ``prov_query`` over the paper's fig 8/9
    workflows at their published sizes, checked against a raw-join oracle;
 4. batched frontiers: the accel DAG queried with the per-hop loop and the
@@ -35,7 +42,9 @@ Phases:
    (recorded as phase 3 ran; on those point rows the flags equal
    ``coalesce_1d``'s run starts) and on the 4,194,304 rows of a one-to-one
    relation over a 2048 x 2048 array; then the kernel against its plain
-   version on made-up tables, edge rows and those operands, timed.
+   version on made-up tables (1 to 2^20 rows, 0 to 126 keys), edge rows
+   and those operands, timed as in phase 2, and ``ops.run_boundaries`` on
+   the 4,194,304 rows on the host clock.
 
 Phases 3-5 are the port's main path, phase 7 the store's and phase 8's
 ``ops.run_boundaries`` calls the run-boundary kernel's: the launch counters
@@ -56,6 +65,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -72,6 +82,10 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 TIMING_REPS = 9
+# a timed run of back-to-back kernel launches lasts about RUN_MS, in at most
+# MAX_LAUNCHES launches
+RUN_MS = 1.0
+MAX_LAUNCHES = 1000
 # block-diagonal tile sizes timed on the main path's first frontier: the
 # port launches at DEFAULT_GEOMETRY (256x256); these are the alternatives
 TILE_GEOMETRIES = ((64, 64), (64, 128), (128, 128), (128, 256), (256, 128), (256, 256))
@@ -87,9 +101,16 @@ REPLACES = {
     "run_boundaries_packed": "src/repro/kernels/run_boundary.py:86",
 }
 SELECTIVITIES = (0.001, 0.01, 0.1)
+# phase 2: mask row counts around the kernel's 64 x 256 block tile and its
+# 16-byte stores, and widths around its four-attribute passes
+MASK_EDGES = (1, 63, 64, 65, 255, 256, 257, 1000)
+MASK_WIDTHS = (1, 2, 4, 8, 9, 16, 17, 63, 64)
 # phase 8: made-up tables (rows x key columns), and the 2048 x 2048 table
 RB_ROWS = (1, 255, 256, 257, 1024, 1025, 1 << 20)
-RB_KEYS = (0, 1, 4, 8, 126)
+# key counts whose row width (n_keys + 2 lanes) is 1-3 16-byte chunks, not a
+# multiple of 4 lanes, or the whole 128-lane row; timed at 2^20 rows: RB_TIMED_KEYS
+RB_KEYS = (0, 1, 2, 3, 4, 6, 7, 8, 126)
+RB_TIMED_KEYS = (0, 1, 4, 8, 126)
 RB_SIDE = 2048
 # phase 3's workflow sizes (image side, relational n, resnet side, random
 # pipelines, random cells) and phase 4's accel DAG (shape, branches, hops,
@@ -110,6 +131,55 @@ def gpu_name_and_power() -> str:
         check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# the C symbols of the kernel library; an earlier build is linked with each
+# renamed before_<name>, so both libraries load in one process
+LIB_SYMBOLS = ("rj_range_join_mask", "rj_range_join_tile_masks", "rb_run_boundaries",
+               "rj_error_string")
+
+
+def start_before_build(_build, src_dir: Path) -> list:
+    """Start one ``nvcc`` per ``*.cu`` of ``src_dir`` (the ``csrc`` directory
+    of an earlier commit), with the flags of ``_build``; returns the
+    (source, object, process) triples."""
+    srcs = sorted(src_dir.glob("*.cu"))
+    if not srcs:
+        raise FileNotFoundError(f"--before: no *.cu in {src_dir}")
+    out = ROOT / "build" / "before"
+    out.mkdir(parents=True, exist_ok=True)
+    renames = [f"-D{sym}=before_{sym}" for sym in LIB_SYMBOLS]
+    procs = []
+    for src in srcs:
+        obj = out / f"{src.stem}.o"
+        procs.append((src, obj, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *renames, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )))
+    return procs
+
+
+def finish_before_build(_build, procs, lib):
+    """Link the earlier build and bind it like ``lib``: an object whose
+    attributes carry ``lib``'s names."""
+    import ctypes
+    from types import SimpleNamespace
+
+    for src, _, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"--before: nvcc failed on {src}:\n{err[-4000:]}")
+    so = ROOT / "build" / "before" / "libbefore.so"
+    subprocess.run([_build._nvcc(), *_build.ARCH, "-shared", "-o", str(so),
+                    *(str(obj) for _, obj, _ in procs)], check=True, capture_output=True)
+    before = ctypes.CDLL(str(so))
+    bound_fns = {}
+    for sym in LIB_SYMBOLS:
+        fn = getattr(before, f"before_{sym}")
+        fn.argtypes = getattr(lib, sym).argtypes
+        fn.restype = getattr(lib, sym).restype
+        bound_fns[sym] = fn
+    return SimpleNamespace(**bound_fns)
 
 
 # --------------------------------------------------------------------------- #
@@ -279,15 +349,22 @@ def ragged_frontier(k, row_lo, row_hi, n_attrs, seed=0):
 # --------------------------------------------------------------------------- #
 # Kernel checks
 # --------------------------------------------------------------------------- #
-def packed_boxes(torch, rng, n, n_attrs, device, seg=None):
+def packed_boxes(torch, rng, n, n_attrs, device, seg=None, spanning=False):
     """Packed [n, 128] int32 boxes.  Up to three attributes discriminate;
     the rest always overlap, so wide masks keep real pairs and every lane
-    is read.  ``seg`` puts a segment id in the last attribute (lo = hi)."""
+    is read.  ``seg`` puts a segment id in the last attribute (lo = hi).
+    ``spanning``: half the rows hold 0 and 1 in every attribute
+    (lo <= 0, hi >= 1) and the rest lie in [5, 12], so a row staged as
+    zeros past the operands would overlap the first half."""
     p = np.zeros((n, 128), np.int32)
+    span = rng.random(n) < 0.5
     for j in range(n_attrs):
         if seg is not None and j == n_attrs - 1:
             lo = seg
             hi = seg
+        elif spanning:
+            lo = np.where(span, -rng.integers(0, 4, n), 5 + rng.integers(0, 4, n))
+            hi = np.where(span, 1 + rng.integers(0, 4, n), lo + rng.integers(0, 4, n))
         elif j < 3:
             lo = rng.integers(0, 60, n)
             hi = lo + rng.integers(0, 8, n)
@@ -307,7 +384,8 @@ def checked(err: int) -> None:
 
 def cuda_samples(torch, fn) -> list:
     """Milliseconds of ``fn`` in each of TIMING_REPS runs (CUDA events),
-    after one untimed warm-up."""
+    after one untimed warm-up.  One call per event pair: what a caller pays,
+    the host's launch gap included (``wrapper_ms``, ``plain_ms``)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -325,6 +403,79 @@ def cuda_samples(torch, fn) -> list:
 def cuda_ms(torch, fn) -> float:
     """Median milliseconds of ``fn`` over TIMING_REPS runs."""
     return float(np.median(cuda_samples(torch, fn)))
+
+
+class KernelTimer:
+    """Kernel time as the card sees it: one CUDA event pair around K
+    back-to-back raw launches into a preallocated output, divided by K.
+
+    K is sized so a run lasts about RUN_MS (at most MAX_LAUNCHES), after a
+    warm-up.  A sleep kernel queued ahead of each run keeps the card busy
+    while the host enqueues the K launches, so the host's gap between two
+    launches is never counted as kernel time.  The result is the median of
+    TIMING_REPS runs.  With ``before`` (the library built from an earlier
+    commit's sources, see ``build_before``) the same launch of the earlier
+    kernel is timed in the same call, in the order before, now, now, before.
+    """
+
+    def __init__(self, torch, lib, before=None):
+        self.torch, self.lib, self.before = torch, lib, before
+        torch.cuda._sleep(1000)
+        start, end = self._events()
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        self.cycles_per_ms = 10_000_000 / start.elapsed_time(end)
+
+    def _events(self):
+        ev = self.torch.cuda.Event
+        return ev(enable_timing=True), ev(enable_timing=True)
+
+    def _run(self, launch, k, host_ms) -> float:
+        # the sleep outlasts the host's enqueueing of the k launches
+        self.torch.cuda._sleep(int(self.cycles_per_ms * (2.0 * k * host_ms + 0.2)))
+        start, end = self._events()
+        start.record()
+        for _ in range(k):
+            launch()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / k
+
+    def _host_ms(self, launch) -> float:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            launch()
+        dt = (time.perf_counter() - t0) * 1e3 / 10
+        self.torch.cuda.synchronize()
+        return dt
+
+    def ms(self, make_launch) -> tuple[float, "float | None"]:
+        """Per-launch device ms of ``make_launch(lib)``, and of
+        ``make_launch(before)`` where an earlier build is loaded (else
+        None)."""
+        now = make_launch(self.lib)
+        old = make_launch(self.before) if self.before is not None else None
+        host = {}
+        for name, fn in (("now", now), ("old", old)):
+            if fn is not None:
+                fn()
+                self.torch.cuda.synchronize()
+                host[name] = self._host_ms(fn)
+        first = self._run(now, 10, host["now"])
+        k = int(min(MAX_LAUNCHES, max(1, np.ceil(RUN_MS / first))))
+        if old is None:
+            rounds = ((now, "now", TIMING_REPS),)
+        else:
+            half = TIMING_REPS // 2
+            rounds = ((old, "old", TIMING_REPS - half), (now, "now", TIMING_REPS - half),
+                      (now, "now", half), (old, "old", half))
+        samples = {"now": [], "old": []}
+        for fn, name, reps in rounds:
+            samples[name] += [self._run(fn, k, host[name]) for _ in range(reps)]
+        before = float(np.median(samples["old"])) if old is not None else None
+        return float(np.median(samples["now"])), before
 
 
 def plain_blocked(torch, plain, q, r, n_attrs, rows=2048):
@@ -359,9 +510,10 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_mask_kernel(torch, rj, ref, lib, q, r, n_attrs, label):
+def check_mask_kernel(torch, rj, ref, timer, q, r, n_attrs, label, timed=True):
     """Hold ``range_join_mask`` on ``q``/``r`` against its plain version
-    (exact) and time the kernel, the wrapper and the plain version."""
+    (exact); with ``timed``, time the kernel (``KernelTimer``), the wrapper
+    and the plain version."""
     dev = "cuda"
     nq, nr = q.shape[0], r.shape[0]
     got = rj.range_join_mask(q, r, n_attrs=n_attrs)
@@ -370,9 +522,12 @@ def check_mask_kernel(torch, rj, ref, lib, q, r, n_attrs, label):
     err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
     if not torch.equal(got, want):
         raise AssertionError(f"range_join_mask differs from plain at {label}")
+    rec = {"shape": label, "max_abs_err": err}
+    if not timed:
+        return rec
     out = torch.empty((nq, nr), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    ms = cuda_ms(torch, lambda: checked(lib.rj_range_join_mask(
+    ms, ms_before = timer.ms(lambda L: lambda: checked(L.rj_range_join_mask(
         q.data_ptr(), r.data_ptr(), out.data_ptr(), nq, nr, n_attrs, stream
     )))
     wrapper_ms = cuda_ms(torch, lambda: rj.range_join_mask(q, r, n_attrs=n_attrs))
@@ -384,23 +539,49 @@ def check_mask_kernel(torch, rj, ref, lib, q, r, n_attrs, label):
     b_ms, b_by = bound(bytes_moved, ops)
     log(
         f"  range_join_mask {label}: equal pairs={int(got.sum())} "
-        f"kernel={ms:.4f}ms wrapper={wrapper_ms:.4f}ms plain={plain_ms:.4f}ms "
-        f"bound={b_ms:.4f}ms ({b_by}) bytes={bytes_moved} compares={ops}"
+        f"kernel={ms:.4f}ms before={fmt_ms(ms_before)} wrapper={wrapper_ms:.4f}ms "
+        f"plain={plain_ms:.4f}ms bound={b_ms:.4f}ms ({b_by}) bytes={bytes_moved} "
+        f"compares={ops}"
     )
-    return {"shape": label, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+    rec.update({"ms": ms, "ms_before": ms_before, "wrapper_ms": wrapper_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
+    return rec
 
 
-def synthetic_mask(torch, rj, ref, lib, rng, nq, nr, n_attrs, seg_lane=False):
+def fmt_ms(ms) -> str:
+    return "n/a" if ms is None else f"{ms:.4f}ms"
+
+
+def check_mask_stores(torch, ref, lib, q, r, n_attrs, offset, label):
+    """A raw launch into an output ``offset`` bytes past a 16-byte boundary
+    (so at every store width the kernel has) writes the mask's bytes and
+    not one byte around them."""
+    nq, nr = q.shape[0], r.shape[0]
+    buf = torch.full((nq * nr + 64,), 0xEE, dtype=torch.uint8, device="cuda")
+    start = 16 + offset
+    checked(lib.rj_range_join_mask(
+        q.data_ptr(), r.data_ptr(), buf[start:].data_ptr(), nq, nr, n_attrs,
+        torch.cuda.current_stream().cuda_stream,
+    ))
+    want = ref.range_join_mask_ref(q, r, n_attrs).reshape(-1)
+    if not (torch.equal(buf[start : start + nq * nr], want)
+            and bool((buf[:start] == 0xEE).all())
+            and bool((buf[start + nq * nr :] == 0xEE).all())):
+        raise AssertionError(f"range_join_mask stores at {label} offset {offset}")
+
+
+def synthetic_mask(torch, rj, ref, timer, rng, nq, nr, n_attrs, seg_lane=False,
+                   spanning=False, timed=True):
     seg_q = np.sort(rng.integers(0, 4, nq)) if seg_lane else None
     seg_r = np.sort(rng.integers(0, 4, nr)) if seg_lane else None
-    q = packed_boxes(torch, rng, nq, n_attrs, "cuda", seg_q)
-    r = packed_boxes(torch, rng, nr, n_attrs, "cuda", seg_r)
-    label = f"{nq}x{nr}x{n_attrs}" + ("+seg" if seg_lane else "")
-    return check_mask_kernel(torch, rj, ref, lib, q, r, n_attrs, label)
+    q = packed_boxes(torch, rng, nq, n_attrs, "cuda", seg_q, spanning)
+    r = packed_boxes(torch, rng, nr, n_attrs, "cuda", seg_r, spanning)
+    label = (f"{nq}x{nr}x{n_attrs}" + ("+seg" if seg_lane else "")
+             + ("+span" if spanning else ""))
+    return check_mask_kernel(torch, rj, ref, timer, q, r, n_attrs, label, timed)
 
 
-def check_tile_kernel(torch, rj, ref, lib, ops_mod, segs, n_attrs, bq, br, name):
+def check_tile_kernel(torch, rj, ref, timer, ops_mod, segs, n_attrs, bq, br, name):
     """Hold ``range_join_tile_masks`` on the block-diagonal schedule of
     ``segs`` at ``bq`` x ``br`` against its plain version (exact) and time
     the kernel, the wrapper, the plain version and the whole pair pipeline
@@ -436,7 +617,7 @@ def check_tile_kernel(torch, rj, ref, lib, ops_mod, segs, n_attrs, bq, br, name)
     n_tiles = int(tq.shape[0])
     out = torch.empty((n_tiles, bq, br), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    ms = cuda_ms(torch, lambda: checked(lib.rj_range_join_tile_masks(
+    ms, ms_before = timer.ms(lambda L: lambda: checked(L.rj_range_join_tile_masks(
         q.data_ptr(), r.data_ptr(), tq.data_ptr(), tr.data_ptr(), out.data_ptr(),
         n_tiles, bq, br, n_attrs, stream,
     )))
@@ -453,13 +634,14 @@ def check_tile_kernel(torch, rj, ref, lib, ops_mod, segs, n_attrs, bq, br, name)
     pairs_ms = float(np.median(pair_times))
     log(
         f"  range_join_tile_masks {label}: equal pairs={int(got.sum())} "
-        f"kernel={ms:.4f}ms wrapper={wrapper_ms:.4f}ms plain={plain_ms:.4f}ms "
+        f"kernel={ms:.4f}ms before={fmt_ms(ms_before)} wrapper={wrapper_ms:.4f}ms "
+        f"plain={plain_ms:.4f}ms "
         f"pipeline={pairs_ms:.4f}ms [{min(pair_times):.4f}-{max(pair_times):.4f}] "
         f"bound={b_ms:.4f}ms ({b_by}) bytes={bytes_moved} compares={ops}"
     )
-    return {"shape": label, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "pipeline_ms": pairs_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": err}
+    return {"shape": label, "ms": ms, "ms_before": ms_before, "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "pipeline_ms": pairs_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err}
 
 
 class MainPathRecorder:
@@ -527,33 +709,46 @@ class MainPathRecorder:
 # --------------------------------------------------------------------------- #
 # Phases
 # --------------------------------------------------------------------------- #
-def phase_kernels(torch, rj, ref, lib, ops_mod) -> dict:
+def phase_kernels(torch, rj, ref, timer, ops_mod) -> dict:
     rng = np.random.default_rng(0)
     records = {"range_join_mask": [], "range_join_tile_masks": []}
-    for nq in (255, 256, 257):
-        for nr in (255, 256, 257):
-            records["range_join_mask"].append(
-                synthetic_mask(torch, rj, ref, lib, rng, nq, nr, 1)
-            )
+    masks = records["range_join_mask"]
+    # exact, untimed: row counts around the mask kernel's 64 x 256 block tile
+    # and its 16-byte stores (every other shape with boxes that hold 0 and
+    # 1), widths around its four-attribute passes, the segment lane, and
+    # raw launches at every output alignment
+    for i, nq in enumerate(MASK_EDGES):
+        for j, nr in enumerate(MASK_EDGES):
+            masks.append(synthetic_mask(torch, rj, ref, timer, rng, nq, nr, 1,
+                                        spanning=(i + j) % 2 == 1, timed=False))
+    for k, a in enumerate(MASK_WIDTHS):
+        masks.append(synthetic_mask(torch, rj, ref, timer, rng, 65, 1000, a,
+                                    spanning=k % 2 == 1, timed=False))
+    for nq, nr, a in ((65, 257, 2), (200, 513, 17), (70, 300, 64)):
+        masks.append(synthetic_mask(torch, rj, ref, timer, rng, nq, nr, a,
+                                    seg_lane=True, timed=False))
+    for offset in (0, 1, 2, 4, 8):
+        for nq, nr in ((65, 1000), (64, 257), (1, 255)):
+            q = packed_boxes(torch, rng, nq, 2, "cuda", spanning=True)
+            r = packed_boxes(torch, rng, nr, 2, "cuda", spanning=True)
+            check_mask_stores(torch, ref, timer.lib, q, r, 2, offset, f"{nq}x{nr}x2")
+    log(f"  range_join_mask: {len(masks)} shapes and 15 raw launches exact "
+        f"(rows {MASK_EDGES}, widths {MASK_WIDTHS}, segment lane, spanning boxes)")
     for shape in ((1, 1, 3), (200, 20_000, 2), (3000, 20_000, 2), (20_000, 20_000, 4),
                   (2000, 3000, 64)):
-        records["range_join_mask"].append(
-            synthetic_mask(torch, rj, ref, lib, rng, *shape)
-        )
-    records["range_join_mask"].append(
-        synthetic_mask(torch, rj, ref, lib, rng, 2000, 3000, 64, seg_lane=True)
-    )
+        masks.append(synthetic_mask(torch, rj, ref, timer, rng, *shape))
+    masks.append(synthetic_mask(torch, rj, ref, timer, rng, 2000, 3000, 64, seg_lane=True))
     # the block-diagonal layout on the accel ablation's ragged frontier:
     # 24 segments of 96-224 rows a side (~7,800 rows), 2 attributes
     segs = ragged_frontier(24, 96, 224, n_attrs=2, seed=11)
     for g in (64, 128, 256):
         records["range_join_tile_masks"].append(
-            check_tile_kernel(torch, rj, ref, lib, ops_mod, segs, 2, g, g, "ragged")
+            check_tile_kernel(torch, rj, ref, timer, ops_mod, segs, 2, g, g, "ragged")
         )
     return records
 
 
-def phase_main_operands(torch, rj, ref, lib, ops_mod, seen) -> tuple[dict, dict]:
+def phase_main_operands(torch, rj, ref, timer, ops_mod, seen) -> tuple[dict, dict]:
     """Each kernel against its plain version on the operands the main path
     gave it: phase 3's largest mask and phase 5's first, and every phase 4
     frontier at the geometry it ran, the first one also at each size of
@@ -569,13 +764,13 @@ def phase_main_operands(torch, rj, ref, lib, ops_mod, seen) -> tuple[dict, dict]
             f"{cells[len(cells) // 2]}, max {cells[-1]}")
         q, r, a = seen.mask_largest[3]
         records["range_join_mask"].append(check_mask_kernel(
-            torch, rj, ref, lib, q, r, a, f"phase3-largest {q.shape[0]}x{r.shape[0]}x{a}"
+            torch, rj, ref, timer, q, r, a, f"phase3-largest {q.shape[0]}x{r.shape[0]}x{a}"
         ))
     if 5 not in seen.mask_first:
         raise AssertionError("phase 5 launched no range_join_mask")
     q, r, a = seen.mask_first[5]
     main["range_join_mask"] = check_mask_kernel(
-        torch, rj, ref, lib, q, r, a, f"phase5 {q.shape[0]}x{r.shape[0]}x{a}"
+        torch, rj, ref, timer, q, r, a, f"phase5 {q.shape[0]}x{r.shape[0]}x{a}"
     )
     records["range_join_mask"].append(main["range_join_mask"])
     fronts = [f for f in seen.frontiers if f[0] == 4]
@@ -583,7 +778,7 @@ def phase_main_operands(torch, rj, ref, lib, ops_mod, seen) -> tuple[dict, dict]
         raise AssertionError("phase 4 launched no block-diagonal frontier")
     for i, (_, segs, n_attrs, bq, br) in enumerate(fronts):
         rec = check_tile_kernel(
-            torch, rj, ref, lib, ops_mod, segs, n_attrs, bq, br, f"phase4-wave{i}"
+            torch, rj, ref, timer, ops_mod, segs, n_attrs, bq, br, f"phase4-wave{i}"
         )
         records["range_join_tile_masks"].append(rec)
         main.setdefault("range_join_tile_masks", rec)
@@ -593,7 +788,7 @@ def phase_main_operands(torch, rj, ref, lib, ops_mod, seen) -> tuple[dict, dict]
     for sweep, order in (("pass1", TILE_GEOMETRIES), ("pass2", TILE_GEOMETRIES[::-1])):
         for g in order:
             records["range_join_tile_masks"].append(check_tile_kernel(
-                torch, rj, ref, lib, ops_mod, segs, n_attrs, *g, f"phase4-wave0 {sweep}"
+                torch, rj, ref, timer, ops_mod, segs, n_attrs, *g, f"phase4-wave0 {sweep}"
             ))
     return main, records
 
@@ -966,9 +1161,9 @@ def rb_table(torch, n, n_keys, seed):
     return p
 
 
-def check_rb_kernel(torch, rb, ref, lib, packed, n_keys, label, timed, expect=None):
+def check_rb_kernel(torch, rb, ref, timer, packed, n_keys, label, timed, expect=None):
     """Hold ``run_boundaries_packed`` at block_rows 256 and 1024 against its
-    plain version (exact); with ``timed``, time the kernel's own launch,
+    plain version (exact); with ``timed``, time the kernel (``KernelTimer``),
     the wrapper and the plain version."""
     n = packed.shape[0]
     want = ref.run_boundaries_ref(packed, n_keys)
@@ -989,7 +1184,7 @@ def check_rb_kernel(torch, rb, ref, lib, packed, n_keys, label, timed, expect=No
         return rec
     out = torch.empty(n, dtype=torch.uint8, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    ms = cuda_ms(torch, lambda: checked(lib.rb_run_boundaries(
+    ms, ms_before = timer.ms(lambda L: lambda: checked(L.rb_run_boundaries(
         packed.data_ptr(), out.data_ptr(), n, n_keys, 1024, stream
     )))
     wrapper_ms = cuda_ms(torch, lambda: rb.run_boundaries_packed(packed, n_keys=n_keys))
@@ -999,11 +1194,11 @@ def check_rb_kernel(torch, rb, ref, lib, packed, n_keys, label, timed, expect=No
     b_ms, b_by = bound(bytes_moved, ops)
     log(
         f"  run_boundaries_packed {label}: equal runs={int(want.sum())} "
-        f"kernel={ms:.4f}ms wrapper={wrapper_ms:.4f}ms plain={plain_ms:.4f}ms "
-        f"bound={b_ms:.4f}ms ({b_by}) bytes={bytes_moved} ops={ops}"
+        f"kernel={ms:.4f}ms before={fmt_ms(ms_before)} wrapper={wrapper_ms:.4f}ms "
+        f"plain={plain_ms:.4f}ms bound={b_ms:.4f}ms ({b_by}) bytes={bytes_moved} ops={ops}"
     )
-    rec.update({"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by})
+    rec.update({"ms": ms, "ms_before": ms_before, "wrapper_ms": wrapper_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
     return rec
 
 
@@ -1018,48 +1213,55 @@ def host_ms(torch, fn, reps=3) -> float:
     return float(np.median(times))
 
 
-def phase_rb_checks(torch, rb, ref, lib, ops_mod, tables, big) -> tuple[dict, list]:
+def phase_rb_checks(torch, rb, ref, timer, ops_mod, tables, big) -> tuple[dict, list]:
     """The kernel against its plain version: made-up tables, edge rows, the
     main path's tables; the 2048 x 2048 table also through the whole
-    ``ops.run_boundaries`` wrapper, with its host pack and upload apart.
-    Returns the record that stands for the main path and all records."""
+    ``ops.run_boundaries`` wrapper (host clock).  Returns the record that
+    stands for the main path and all records."""
     records = []
+    dev = torch.device("cuda")
     for n in RB_ROWS:
         for n_keys in RB_KEYS:
             p = rb_table(torch, n, n_keys, seed=n * 131 + n_keys)
             records.append(check_rb_kernel(
-                torch, rb, ref, lib, p, n_keys, f"made-up {n}x{n_keys}", timed=n == RB_ROWS[-1]
+                torch, rb, ref, timer, p, n_keys, f"made-up {n}x{n_keys}",
+                timed=n == RB_ROWS[-1] and n_keys in RB_TIMED_KEYS,
             ))
+    log(f"  run_boundaries_packed: {len(records)} made-up tables exact "
+        f"(rows {RB_ROWS}, keys {RB_KEYS}, block_rows 256 and 1024)")
     i32 = np.iinfo(np.int32)
     edge = torch.full((3, 128), i32.min, dtype=torch.int32, device="cuda")
     wrap = torch.zeros((4, 128), dtype=torch.int32, device="cuda")
     wrap[:, 1] = torch.tensor([0, 5, i32.min, i32.min + 1], dtype=torch.int32)
     wrap[:, 2] = i32.max
+    # at 3 keys lo and hi lie in two 16-byte chunks
+    wrap3 = torch.zeros((4, 128), dtype=torch.int32, device="cuda")
+    wrap3[:, 3] = wrap[:, 1]
+    wrap3[:, 4] = i32.max
     for p, n_keys, expect, label in ((edge, 0, [1, 0, 0], "INT32_MIN row 0, n_keys=0"),
                                      (edge, 1, [1, 0, 0], "INT32_MIN row 0, n_keys=1"),
-                                     (wrap, 1, [1, 1, 0, 1], "hi=INT32_MAX wrap")):
-        records.append(check_rb_kernel(torch, rb, ref, lib, p, n_keys, label, False, expect))
+                                     (edge, 7, [1, 0, 0], "INT32_MIN row 0, n_keys=7"),
+                                     (edge, 126, [1, 0, 0], "INT32_MIN row 0, n_keys=126"),
+                                     (wrap, 1, [1, 1, 0, 1], "hi=INT32_MAX wrap"),
+                                     (wrap3, 3, [1, 1, 0, 1], "hi=INT32_MAX wrap, n_keys=3")):
+        records.append(check_rb_kernel(torch, rb, ref, timer, p, n_keys, label, False, expect))
     for wf, cols, lo, hi in tables:
-        p = torch.from_numpy(ops_mod._pack_run_table(cols, lo, hi)).to("cuda")
+        p = ops_mod._pack_run_columns(cols, lo, hi, dev)
         records.append(check_rb_kernel(
-            torch, rb, ref, lib, p, len(cols), f"phase3 {wf} {lo.shape[0]}x{len(cols)}", True
+            torch, rb, ref, timer, p, len(cols), f"phase3 {wf} {lo.shape[0]}x{len(cols)}", True
         ))
     cols, lo, hi = big
-    packed_host = ops_mod._pack_run_table(cols, lo, hi)
-    p = torch.from_numpy(packed_host).to("cuda")
+    p = ops_mod._pack_run_columns(cols, lo, hi, dev)
     main = check_rb_kernel(
-        torch, rb, ref, lib, p, len(cols), f"identity {RB_SIDE}x{RB_SIDE} {lo.shape[0]}x{len(cols)}",
-        True,
+        torch, rb, ref, timer, p, len(cols),
+        f"identity {RB_SIDE}x{RB_SIDE} {lo.shape[0]}x{len(cols)}", True,
     )
     records.append(main)
     del p
-    pack_ms = host_ms(torch, lambda: ops_mod._pack_run_table(cols, lo, hi))
-    upload_ms = host_ms(torch, lambda: torch.from_numpy(packed_host).to("cuda"))
-    del packed_host
     ops_ms = host_ms(torch, lambda: ops_mod.run_boundaries(cols, lo, hi, device="cuda"))
-    main.update({"ops_ms": ops_ms, "pack_ms": pack_ms, "upload_ms": upload_ms})
+    main["ops_ms"] = ops_ms
     log(f"  ops.run_boundaries {main['shape']}: total={ops_ms:.1f}ms "
-        f"pack={pack_ms:.1f}ms upload={upload_ms:.1f}ms (host clock, medians of 3)")
+        "(host clock, median of 3; columns uploaded and packed on the card)")
     return main, records
 
 
@@ -1092,9 +1294,18 @@ def main_path(wrappers, names, phase):
     return out, launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--before", type=Path, default=None,
+        help="csrc directory of an earlier commit: its kernels are built too and "
+             "timed beside these in the same call (ms_before)",
+    )
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1116,11 +1327,18 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
+    before_procs = start_before_build(_build, args.before) if args.before else None
     lib = _build.load()
-    log(f"[phase 1 build] {time.perf_counter() - t0:.2f}s -> {_build.build().name}")
+    before = finish_before_build(_build, before_procs, lib) if before_procs else None
+    log(f"[phase 1 build] {time.perf_counter() - t0:.2f}s -> {_build.build().name}"
+        + (f" (and {args.before}, for ms_before)" if before else ""))
     for line in _build.build().with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        entry = re.search(r"entry function '[^']*?([a-z]\w*?_kernel)", line)
+        if entry:
+            log(f"  ptxas: {entry.group(1)}")
+        elif "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    timer = KernelTimer(torch, lib, before)
 
     wrappers = {
         "range_join_mask": rj.range_join_mask,
@@ -1130,7 +1348,7 @@ def main() -> int:
     joins = ("range_join_mask", "range_join_tile_masks")
     records = run_phase(
         torch, wrappers, "2 kernels vs plain",
-        lambda: phase_kernels(torch, rj, ref, lib, ops_mod),
+        lambda: phase_kernels(torch, rj, ref, timer, ops_mod),
     )
 
     # the main path, phases 3-5: the counters count only their launches
@@ -1158,7 +1376,7 @@ def main() -> int:
 
     main_recs, main_records = run_phase(
         torch, wrappers, "6 kernels vs plain on the main path's operands",
-        lambda: phase_main_operands(torch, rj, ref, lib, ops_mod, seen),
+        lambda: phase_main_operands(torch, rj, ref, timer, ops_mod, seen),
     )
 
     # the store's path, phase 7
@@ -1183,7 +1401,7 @@ def main() -> int:
     log(f"run-boundary path launches: {rb_launches}")
     rb_main, rb_records = run_phase(
         torch, wrappers, "8b run_boundaries_packed vs plain",
-        lambda: phase_rb_checks(torch, rb, ref, lib, ops_mod, tables, big),
+        lambda: phase_rb_checks(torch, rb, ref, timer, ops_mod, tables, big),
     )
     main_recs["run_boundaries_packed"] = rb_main
     main_records["run_boundaries_packed"] = rb_records
@@ -1200,6 +1418,7 @@ def main() -> int:
                 r["max_abs_err"] for r in records.get(name, []) + main_records[name]
             ),
             "ms": rec["ms"],
+            "ms_before": rec["ms_before"],
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
@@ -1207,7 +1426,7 @@ def main() -> int:
             "wrapper_ms": rec["wrapper_ms"],
             "shape": rec["shape"],
             **({"launches_store_path": store_launches[name]} if name in joins else {}),
-            **{k: rec[k] for k in ("ops_ms", "pack_ms", "upload_ms") if k in rec},
+            **({"ops_ms": rec["ops_ms"]} if "ops_ms" in rec else {}),
         })
     log(f"store: {json.dumps(store)}")
     log(card)

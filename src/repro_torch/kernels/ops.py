@@ -67,13 +67,16 @@ def fits_int32(*arrays: np.ndarray) -> bool:
     return True
 
 
+_INT32_ERROR = (
+    "coordinates outside the int32 range cannot be packed for the kernel "
+    "path (they would wrap); route this join to the numpy dense path "
+    "(fits_int32 gates this)"
+)
+
+
 def _require_int32(*arrays: np.ndarray) -> None:
     if not fits_int32(*arrays):
-        raise ValueError(
-            "coordinates outside the int32 range cannot be packed for the "
-            "kernel path (they would wrap); route this join to the numpy "
-            "dense path (fits_int32 gates this)"
-        )
+        raise ValueError(_INT32_ERROR)
 
 
 def run_boundaries(
@@ -86,37 +89,53 @@ def run_boundaries(
     """Boundary flags for sorted rows; drop-in for the numpy hot pass.
 
     ``group_cols`` are the equality columns, ``lo``/``hi`` the merge-column
-    interval.  Values must fit int32 (array indices always do).  The table
-    is packed on the host, uploaded to ``device`` and flagged there by the
+    interval.  Values must fit int32 (array indices always do).  The live
+    columns are uploaded to ``device``, packed there and flagged by the
     ``run_boundaries_packed`` kernel (its plain version on ``"cpu"``); the
     flags come back as a numpy bool array.
     """
     dev = resolve_device(device)
-    packed = _pack_run_table(group_cols, lo, hi)
     flags = run_boundaries_packed(
-        torch.from_numpy(packed).to(dev),
+        _pack_run_columns(group_cols, lo, hi, dev),
         n_keys=len(group_cols),
         block_rows=block_rows,
     )
     return flags.cpu().numpy().astype(bool)
 
 
-def _pack_run_table(
-    group_cols: list[np.ndarray], lo: np.ndarray, hi: np.ndarray
-) -> np.ndarray:
+def _pack_run_columns(
+    group_cols: list[np.ndarray], lo: np.ndarray, hi: np.ndarray, device: torch.device
+) -> torch.Tensor:
     """Pack sorted rows into the run-boundary kernel's ``[N, 128]`` int32
-    layout: key lanes ``[0, n_keys)``, then ``lo``, then ``hi``."""
+    layout on ``device``: key lanes ``[0, n_keys)``, then ``lo``, then
+    ``hi``, the other lanes 0.  Only the ``n_keys + 2`` live columns cross
+    to the device, as they are (48 bytes a row at 4 int64 keys, not 512);
+    the int32 table is made there, and the int32 range is checked there
+    too, so the host makes no pass over the rows."""
     n = lo.shape[0]
     n_keys = len(group_cols)
     if n_keys + 2 > LANES:
         raise ValueError(f"{n_keys} group columns do not fit one {LANES}-lane tile")
-    _require_int32(*group_cols, lo, hi)
-    packed = np.zeros((n, LANES), np.int32)
-    for c, col in enumerate(group_cols):
-        packed[:, c] = col.astype(np.int32)
-    packed[:, n_keys] = lo.astype(np.int32)
-    packed[:, n_keys + 1] = hi.astype(np.int32)
+    packed = torch.zeros((n, LANES), dtype=torch.int32, device=device)
+    extremes = []
+    for c, col in enumerate((*group_cols, lo, hi)):
+        t = torch.from_numpy(np.ascontiguousarray(col)).to(device)
+        if n:
+            extremes += [t.min().double(), t.max().double()]
+        packed[:, c] = t
+    if extremes:
+        lims = torch.stack(extremes).cpu()
+        if lims.min() < _I32.min or lims.max() > _I32.max:
+            raise ValueError(_INT32_ERROR)
     return packed
+
+
+def _pack_run_table(
+    group_cols: list[np.ndarray], lo: np.ndarray, hi: np.ndarray
+) -> np.ndarray:
+    """The packed ``[N, 128]`` int32 table of :func:`_pack_run_columns`, on
+    the host."""
+    return _pack_run_columns(group_cols, lo, hi, torch.device("cpu")).numpy()
 
 
 def _nonzero_rows(mask: torch.Tensor) -> np.ndarray:

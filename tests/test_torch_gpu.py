@@ -41,9 +41,18 @@ def _packed(rng, n, n_attrs, coord=6, width=5):
     return p
 
 
-@pytest.mark.parametrize("nq,nr,n_attrs", [
+# around the kernel's 64 x 256 block tile and its 16-byte stores, and each
+# width around its four-attribute passes
+_MASK_EDGES = (1, 63, 64, 65, 255, 256, 257, 1000)
+_MASK_CASES = [
     (255, 257, 1), (256, 256, 2), (1, 1, 3), (33, 1000, 9), (300, 200, 64), (0, 7, 2),
-])
+]
+_MASK_CASES += [(nq, nr, 1) for nq in _MASK_EDGES for nr in _MASK_EDGES
+                if (nq, nr, 1) not in _MASK_CASES]
+_MASK_CASES += [(65, 1000, a) for a in (1, 2, 4, 8, 9, 16, 17, 63, 64)]
+
+
+@pytest.mark.parametrize("nq,nr,n_attrs", _MASK_CASES)
 def test_mask_kernel_equals_plain(cuda_device, nq, nr, n_attrs):
     rng = np.random.default_rng(SEED + n_attrs)
     q = torch.from_numpy(_packed(rng, nq, n_attrs)).to(cuda_device)
@@ -54,6 +63,57 @@ def test_mask_kernel_equals_plain(cuda_device, nq, nr, n_attrs):
     # a zero-sized mask is never launched (an empty grid is invalid)
     assert rj.range_join_mask.launches == before + (1 if nq and nr else 0)
     assert torch.equal(got, ref.range_join_mask_ref(q, r, n_attrs))
+
+
+def _spanning(rng, n, n_attrs, seg=None):
+    """Boxes that all hold 0 and 1 (lo <= 0, hi >= 1), so a row past the
+    operands staged as zeros would overlap every box; ``seg`` puts a
+    segment id in the last attribute (lo = hi), as the segmented layout
+    does."""
+    p = np.zeros((n, 128), np.int32)
+    p[:, :n_attrs] = -rng.integers(0, 4, (n, n_attrs))
+    p[:, n_attrs : 2 * n_attrs] = 1 + rng.integers(0, 4, (n, n_attrs))
+    if seg is not None:
+        p[:, n_attrs - 1] = p[:, 2 * n_attrs - 1] = seg
+    return p
+
+
+@pytest.mark.parametrize("nq,nr,n_attrs,segmented", [
+    (65, 257, 1, False), (63, 1000, 4, False), (129, 300, 17, False),
+    (65, 257, 2, True), (200, 513, 17, True), (70, 300, 64, True),
+])
+def test_mask_kernel_spanning_boxes(cuda_device, nq, nr, n_attrs, segmented):
+    rng = np.random.default_rng(SEED + nq + nr + n_attrs)
+    seg_q = np.sort(rng.integers(0, 3, nq)) if segmented else None
+    seg_r = np.sort(rng.integers(0, 3, nr)) if segmented else None
+    q = torch.from_numpy(_spanning(rng, nq, n_attrs, seg_q)).to(cuda_device)
+    r = torch.from_numpy(_spanning(rng, nr, n_attrs, seg_r)).to(cuda_device)
+    got = rj.range_join_mask(q, r, n_attrs=n_attrs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.range_join_mask_ref(q, r, n_attrs))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("nq,nr", [(65, 1000), (64, 257), (1, 255)])
+def test_mask_kernel_stores_stay_in_bounds(cuda_device, offset, nq, nr):
+    """A raw launch into an output at every alignment writes exactly the
+    mask's bytes, at the store width that alignment allows."""
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(SEED + offset + nr)
+    q = torch.from_numpy(_spanning(rng, nq, 2)).to(cuda_device)
+    r = torch.from_numpy(_packed(rng, nr, 2)).to(cuda_device)
+    buf = torch.full((nq * nr + 64,), 0xEE, dtype=torch.uint8, device=cuda_device)
+    start = 16 + offset
+    err = _build.load().rj_range_join_mask(
+        q.data_ptr(), r.data_ptr(), buf[start:].data_ptr(), nq, nr, 2,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    _build.check_launch(err, "range_join_mask")
+    torch.cuda.synchronize()
+    want = ref.range_join_mask_ref(q, r, 2).reshape(-1)
+    assert torch.equal(buf[start : start + nq * nr], want)
+    assert bool((buf[:start] == 0xEE).all()) and bool((buf[start + nq * nr :] == 0xEE).all())
 
 
 @pytest.mark.parametrize("bq,br", [(64, 64), (128, 128), (256, 256), (64, 256)])
@@ -133,7 +193,7 @@ def _sorted_table(rng, n, n_keys):
 
 
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 1024, 1025])
-@pytest.mark.parametrize("n_keys", [0, 1, 4, 126])
+@pytest.mark.parametrize("n_keys", [0, 1, 4, 126, 2, 3, 6, 7])
 def test_run_boundary_kernel_equals_plain(cuda_device, n, n_keys):
     rng = np.random.default_rng(SEED + n + n_keys)
     p = torch.from_numpy(_sorted_table(rng, n, n_keys)).to(cuda_device)
@@ -153,8 +213,13 @@ def test_run_boundary_kernel_edge_rows(cuda_device):
     wrap = np.zeros((4, 128), np.int32)
     wrap[:, 1] = [0, 5, i32.min, i32.min + 1]
     wrap[:, 2] = i32.max
+    # at 3 keys lo and hi sit in two 16-byte chunks; at 126 the row is full
+    wrap3 = np.zeros((4, 128), np.int32)
+    wrap3[:, 3] = wrap[:, 1]
+    wrap3[:, 4] = i32.max
     for p, n_keys, expect in ((edge, 0, [1, 0, 0]), (edge, 1, [1, 0, 0]),
-                              (wrap, 1, [1, 1, 0, 1])):
+                              (edge, 7, [1, 0, 0]), (edge, 126, [1, 0, 0]),
+                              (wrap, 1, [1, 1, 0, 1]), (wrap3, 3, [1, 1, 0, 1])):
         t = torch.from_numpy(p).to(cuda_device)
         got = rb.run_boundaries_packed(t, n_keys=n_keys)
         assert got.cpu().tolist() == expect

@@ -304,6 +304,34 @@ def test_run_boundaries_wrapper_matches_reference():
     assert tops.run_boundaries([empty], empty, empty, device="cpu").shape == (0,)
 
 
+@pytest.mark.parametrize("n,n_keys", [(0, 1), (1, 0), (257, 1), (1500, 4), (700, 7)])
+def test_run_boundaries_device_pack_matches_reference(n, n_keys):
+    """``ops.run_boundaries`` uploads only the live columns and packs on the
+    device: the table has the bytes of the reference wrapper's host pack
+    (``src/repro/kernels/ops.py:78-82``) and the flags are the reference's."""
+    rng = np.random.default_rng(SEED + n + n_keys)
+    cols = [np.sort(rng.integers(0, 4, n)) for _ in range(n_keys)]
+    order = np.lexsort((rng.integers(0, n + 1, n), *cols[::-1])) if n else np.zeros(0, np.int64)
+    cols = [c[order] for c in cols]
+    lo = np.sort(rng.integers(0, max(n, 1), n)).astype(np.int64)
+    hi = lo + rng.integers(0, 3, n)
+    want = np.zeros((n, 128), np.int32)
+    for c, col in enumerate(cols):
+        want[:, c] = col.astype(np.int32)
+    want[:, n_keys] = lo.astype(np.int32)
+    want[:, n_keys + 1] = hi.astype(np.int32)
+    got = tops._pack_run_columns(cols, lo, hi, torch.device("cpu"))
+    assert got.dtype == torch.int32 and got.numpy().tobytes() == want.tobytes()
+    assert tops._pack_run_table(cols, lo, hi).tobytes() == want.tobytes()
+    flags = tops.run_boundaries(cols, lo, hi, block_rows=256, device="cpu")
+    np.testing.assert_array_equal(
+        flags, jops.run_boundaries(cols, lo, hi, block_rows=256, interpret=True)
+    )
+    if n:
+        with pytest.raises(ValueError, match="int32"):
+            tops._pack_run_columns(cols, lo + 2**31, hi, torch.device("cpu"))
+
+
 def test_run_boundaries_hi_wrap_matches_reference():
     """``hi[t-1] = INT32_MAX``: ``hi + 1`` wraps to INT32_MIN in both
     packages, so any ``lo > INT32_MIN`` reads as a gap."""
