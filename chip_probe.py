@@ -6,18 +6,25 @@ the CUDA toolkit, after or beside ``chip_smoke.py``::
 
     python3 chip_probe.py
 
-``range_join_mask`` is built four more times from its own source
+The kernel library is built three more times from its own source
 (``src/repro_torch/kernels/csrc/range_join.cu``), each with one change made
 by text substitution (the script fails if a substitution no longer
-applies), and timed in turns with the shipped kernel by ``chip_smoke``'s
+applies), and timed in turns with the shipped kernels by ``chip_smoke``'s
 ``KernelTimer`` on made-up operands of the shapes ``chip_smoke.py`` times:
 
 * ``compute_only``: no stores (the verdicts are computed and dropped);
 * ``stores_only``: no compares (the tile is staged and stored);
-* ``f32_compares``: the compare chain in float32 (``setp.f32``), exact on
-  these operands (every value below 2^24), held against the plain version;
-* ``tiles_32x512``: 32 q x 512 r block tiles, so a warp stores one
-  512-byte row segment, held against the plain version.
+* ``tiles_32x512``: the mask kernel on 32 q x 512 r block tiles, so a warp
+  stores one 512-byte row segment, held against the plain version.
+
+The first two change the block-tile body that both range joins run, so they
+also probe ``range_join_tile_masks``: every build is timed on
+``chip_smoke.py``'s full-card schedule (64 segments of 2,048 x 2,048 boxes,
+4 attributes, 4,096 tiles of 256 x 256), beside ``fill_`` of the same
+268,435,456 output bytes, and on a schedule shaped like phase 4's accel-DAG
+waves (20 segments of 512 x 512 boxes, 2 attributes, 80 tiles), beside the
+launch floor: the time a launch of an empty kernel (``torch.cuda._sleep(0)``)
+takes back to back.
 
 Beside them: the write ceiling (``torch`` ``fill_`` of a 20,000 x 20,000
 uint8 mask), the SM clock and power sampled by ``nvidia-smi`` while the
@@ -53,24 +60,13 @@ def _sub(src: str, old: str, new: str) -> str:
 
 def variants(src: str) -> dict:
     """The probe builds of ``range_join.cu``: name -> (source, exact)."""
-    f32 = _sub(src, "(is_hi ? hi : lo)[u][pos] = v[u];",
-               "(is_hi ? hi : lo)[u][pos] = __float_as_int((float)v[u]);")
-    f32 = _sub(f32, "setp.le.s32", "setp.le.f32").replace("setp.le.and.s32", "setp.le.and.f32")
-    for x in ("ql", "qh", "rl", "rh"):
-        for a in range(4):
-            f32 = f32.replace(f'"r"({x}[{a}])', f'"f"(__int_as_float({x}[{a}]))')
-    wide = _sub(src, "constexpr int MQ = 64; ", "constexpr int MQ = 32; ")
-    wide = _sub(wide, "constexpr int MR = 256; ", "constexpr int MR = 512; ")
-    wide = _sub(wide, "const int tq = threadIdx.x >> 4, tr = threadIdx.x & 15;",
-                "const int tq = threadIdx.x >> 5, tr = threadIdx.x & 31;")
-    wide = _sub(wide, "(t >> 4) * UQ", "(t >> 5) * UQ")
-    wide = _sub(wide, "(t & 15) * 16", "(t & 31) * 16")
+    wide = _sub(src, "using MaskGeometry = Geometry<256, MAXK>;",
+                "using MaskGeometry = Geometry<512, MAXK>;")
     return {
         "compute_only": (_sub(src, "if (rr < nr) {",
                               "if (rr < nr && w[0][0] == 0xdeadbeefu && w[3][3] == 0x12345678u) {"),
                          False),
-        "stores_only": (_sub(src, "      dense_pass_k(st, k0, tq, tr, w);\n", ""), False),
-        "f32_compares": (f32, True),
+        "stores_only": (_sub(src, "  if (k0) dense_pass_k(st, k0, tq, tr, w);\n", ""), False),
         "tiles_32x512": (wide, True),
     }
 
@@ -111,6 +107,39 @@ def build_variants(_build, lib, out_dir: Path) -> dict:
             fns[sym] = fn
         libs[name] = SimpleNamespace(**fns)
     return libs
+
+
+def probe_tiles(torch, cs, ref, libs, exact, timers, rng, n_seg, rows, na) -> None:
+    """Every build's tile kernel on ``n_seg`` made-up segments of ``rows`` x
+    ``rows`` boxes, block-diagonal at 256 x 256, timed in turns (exact builds
+    held against the plain version), beside ``fill_`` of the output."""
+    stream = torch.cuda.current_stream().cuda_stream
+    q = cs.packed_boxes(torch, rng, n_seg * rows, na, "cuda")
+    r = cs.packed_boxes(torch, rng, n_seg * rows, na, "cuda")
+    tq_host, tr_host = cs.diagonal_schedule(torch, n_seg, rows, 256, 256)
+    tq, tr = tq_host.cuda(), tr_host.cuda()
+    n_tiles = tq.shape[0]
+    want = cs.plain_tiles(torch, ref, q, r, tq, tr, na, 256, 256)
+    out = torch.empty_like(want)
+
+    def launch(L):
+        return lambda: cs.checked(L.rj_range_join_tile_masks(
+            q.data_ptr(), r.data_ptr(), tq.data_ptr(), tr.data_ptr(), out.data_ptr(),
+            n_tiles, 256, 256, na, stream))
+
+    times = {name: [] for name in libs}
+    for order in (list(libs), list(libs)[::-1]):
+        for name in order:
+            launch(libs[name])()
+            torch.cuda.synchronize()
+            if exact[name] and not torch.equal(out, want):
+                raise AssertionError(f"{name} differs from plain at {n_seg}seg x {rows}x{na}")
+            times[name].append(timers[name].ms(launch)[0])
+    bound_ms, _ = cs.bound(out.numel() + 2 * n_seg * rows * 8 * na + 8 * n_tiles, 0)
+    fill_ms, _ = timers["shipped"].ms(lambda L: lambda: out.fill_(1))
+    print(f"range_join_tile_masks {n_seg}seg x {rows}x{rows}x{na}/{n_tiles}tiles@256x256 "
+          f"(bound {bound_ms:.4f} ms; fill_ of its {out.numel():,} bytes {fill_ms:.4f} ms): "
+          + " ".join(f"{name}={np.mean(t):.4f}ms" for name, t in times.items()))
 
 
 def sample_clocks(stop: threading.Event, samples: list) -> None:
@@ -162,6 +191,10 @@ def main() -> int:
         bound_ms, _ = cs.bound(nq * nr + (nq + nr) * 8 * na, 0)
         print(f"range_join_mask {nq}x{nr}x{na} (bound {bound_ms:.4f} ms): " + " ".join(
             f"{name}={np.mean(t):.4f}ms" for name, t in times.items()))
+    for n_seg, rows, na in (cs.TILE_SCHEDULES[0], (20, 512, 2)):
+        probe_tiles(torch, cs, ref, libs, exact, timers, rng, n_seg, rows, na)
+    floor_ms, _ = timers["shipped"].ms(lambda L: lambda: torch.cuda._sleep(0))
+    print(f"launch floor: torch.cuda._sleep(0) back to back {floor_ms:.4f} ms")
     big = torch.empty((20_000, 20_000), dtype=torch.uint8, device="cuda")
     fill_ms, _ = timers["shipped"].ms(lambda L: lambda: big.fill_(1))
     print(f"write ceiling: fill_ of 400,000,000 bytes {fill_ms:.4f} ms "

@@ -14,13 +14,16 @@ Phases:
 2. hold each kernel against its plain PyTorch version on the card (exact
    equality; the mask kernel also over row counts and widths around its
    block tile, boxes that hold 0 and 1, and raw launches at every output
-   alignment) and time, as medians of 9 runs: the kernel (``ms``: one CUDA
+   alignment; the tile kernel over widths and block sizes, pad rows,
+   repeated tiles and raw launches with guard bytes) and time, on made-up
+   operands and block-diagonal schedules (one that fills the card, one of
+   64 attributes), as medians of 9 runs: the kernel (``ms``: one CUDA
    event pair around K back-to-back raw launches into a preallocated
    output, divided by K, see ``KernelTimer``; ``ms_before`` the earlier
    commit's kernel, timed in turns with it), the wrapper a caller uses
    (``wrapper_ms``: one call per event pair, with output allocation,
    operand and schedule checks and the host's launch gap) and the plain
-   version (``plain_ms``, one call per event pair), on made-up operands;
+   version (``plain_ms``, one call per event pair);
 3. DSLog ingest + explicit-path ``prov_query`` over the paper's fig 8/9
    workflows at their published sizes, checked against a raw-join oracle;
 4. batched frontiers: the accel DAG queried with the per-hop loop and the
@@ -89,6 +92,14 @@ MAX_LAUNCHES = 1000
 # block-diagonal tile sizes timed on the main path's first frontier: the
 # port launches at DEFAULT_GEOMETRY (256x256); these are the alternatives
 TILE_GEOMETRIES = ((64, 64), (64, 128), (128, 128), (128, 256), (256, 128), (256, 256))
+# phase 2: the tile kernel's exactness sweep, widths around its four-attribute
+# passes and block sizes that take each of its block tiles, and ragged ones
+TILE_WIDTHS = (1, 2, 3, 4, 5, 8, 9, 17, 63, 64)
+TILE_SIZES = ((32, 32), (64, 64), (64, 128), (64, 256), (128, 128), (256, 64), (256, 128),
+              (256, 256), (96, 160))
+# phase 2's timed block-diagonal schedules at 256 x 256: (segments, rows a
+# side of each, attributes); the first fills the card, the second is wide
+TILE_SCHEDULES = ((64, 2048, 4), (16, 1024, 64))
 
 KERNEL_SOURCES = {
     "range_join_mask": "src/repro_torch/kernels/csrc/range_join.cu",
@@ -581,19 +592,39 @@ def synthetic_mask(torch, rj, ref, timer, rng, nq, nr, n_attrs, seg_lane=False,
     return check_mask_kernel(torch, rj, ref, timer, q, r, n_attrs, label, timed)
 
 
-def check_tile_kernel(torch, rj, ref, timer, ops_mod, segs, n_attrs, bq, br, name):
-    """Hold ``range_join_tile_masks`` on the block-diagonal schedule of
-    ``segs`` at ``bq`` x ``br`` against its plain version (exact) and time
-    the kernel, the wrapper, the plain version and the whole pair pipeline
-    (``segmented_range_join_pairs``: pack, upload, launch, extraction)."""
+def plain_tiles(torch, ref, q, r, tq, tr, n_attrs, bq, br, tiles=512):
+    """The plain tile masks in schedule blocks of ``tiles``, so no
+    intermediate exceeds ``tiles`` x bq x br."""
+    out = torch.empty((tq.shape[0], bq, br), dtype=torch.uint8, device=q.device)
+    for s in range(0, tq.shape[0], tiles):
+        out[s : s + tiles] = ref.range_join_tile_masks_ref(
+            q, r, tq[s : s + tiles], tr[s : s + tiles], n_attrs, bq, br
+        )
+    return out
+
+
+def tile_compares(torch, q, r, tq, tr, n_attrs, bq, br, tiles=512) -> int:
+    """``needed_compares`` over the scheduled tiles, in blocks of ``tiles``."""
+    total = 0
+    for s in range(0, tq.shape[0], tiles):
+        total += needed_compares(
+            torch, q.reshape(-1, bq, 128)[tq[s : s + tiles].long()],
+            r.reshape(-1, br, 128)[tr[s : s + tiles].long()], n_attrs,
+        )
+    return total
+
+
+def check_tile_kernel(torch, rj, ref, timer, q, r, tq_host, tr_host, n_attrs, bq, br, label,
+                      pairs=None):
+    """Hold ``range_join_tile_masks`` on packed ``q``/``r`` and the host
+    schedule ``tq_host``/``tr_host`` against its plain version (exact) and
+    time the kernel, the wrapper and the plain version; ``pairs``, where
+    given, is the whole pair pipeline of the same frontier
+    (``segmented_range_join_pairs``: pack, upload, launch, extraction),
+    timed too."""
     dev = "cuda"
-    sched = ops_mod._blockdiag_schedule(segs, n_attrs, bq, br)
-    q = torch.from_numpy(sched.q).to(dev)
-    r = torch.from_numpy(sched.r).to(dev)
     # the wrapper takes the schedule on the host; the raw launcher and the
     # plain version read it on the card
-    tq_host = torch.from_numpy(sched.tile_q.astype(np.int32))
-    tr_host = torch.from_numpy(sched.tile_r.astype(np.int32))
     tq, tr = tq_host.to(dev), tr_host.to(dev)
 
     def kernel():
@@ -602,18 +633,15 @@ def check_tile_kernel(torch, rj, ref, timer, ops_mod, segs, n_attrs, bq, br, nam
         )
 
     def plain():
-        return ref.range_join_tile_masks_ref(q, r, tq, tr, n_attrs, bq, br)
-
-    def pairs():
-        return ops_mod.segmented_range_join_pairs(
-            segs, block_q=bq, block_r=br, device=dev, layout="blockdiag"
-        )
+        return plain_tiles(torch, ref, q, r, tq, tr, n_attrs, bq, br)
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err = int((got.int() - want.int()).abs().max())
     if not torch.equal(got, want):
-        raise AssertionError(f"range_join_tile_masks differs from plain at {name} {bq}x{br}")
+        raise AssertionError(f"range_join_tile_masks differs from plain at {label}")
+    n_pairs = int(got.sum())
+    del got, want
     n_tiles = int(tq.shape[0])
     out = torch.empty((n_tiles, bq, br), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
@@ -621,27 +649,136 @@ def check_tile_kernel(torch, rj, ref, timer, ops_mod, segs, n_attrs, bq, br, nam
         q.data_ptr(), r.data_ptr(), tq.data_ptr(), tr.data_ptr(), out.data_ptr(),
         n_tiles, bq, br, n_attrs, stream,
     )))
+    del out
     wrapper_ms = cuda_ms(torch, kernel)
     plain_ms = cuda_ms(torch, plain)
-    pair_times = cuda_samples(torch, pairs)
-    q_blocks = q.reshape(-1, bq, 128)[tq.long()]
-    r_blocks = r.reshape(-1, br, 128)[tr.long()]
-    ops = needed_compares(torch, q_blocks, r_blocks, n_attrs)
-    rows = sched.q.shape[0] + sched.r.shape[0]
+    ops = tile_compares(torch, q, r, tq, tr, n_attrs, bq, br)
+    rows = q.shape[0] + r.shape[0]
     bytes_moved = rows * 2 * n_attrs * 4 + n_tiles * 8 + n_tiles * bq * br
     b_ms, b_by = bound(bytes_moved, ops)
-    label = f"{name} {len(segs)}seg/{rows}rows/{n_tiles}tiles@{bq}x{br}"
-    pairs_ms = float(np.median(pair_times))
+    rec = {"shape": label, "ms": ms, "ms_before": ms_before, "wrapper_ms": wrapper_ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+           "cells": n_tiles * bq * br}
+    pipeline = ""
+    if pairs is not None:
+        pair_times = cuda_samples(torch, pairs)
+        rec["pipeline_ms"] = float(np.median(pair_times))
+        pipeline = (f"pipeline={rec['pipeline_ms']:.4f}ms "
+                    f"[{min(pair_times):.4f}-{max(pair_times):.4f}] ")
     log(
-        f"  range_join_tile_masks {label}: equal pairs={int(got.sum())} "
+        f"  range_join_tile_masks {label}: equal pairs={n_pairs} "
         f"kernel={ms:.4f}ms before={fmt_ms(ms_before)} wrapper={wrapper_ms:.4f}ms "
-        f"plain={plain_ms:.4f}ms "
-        f"pipeline={pairs_ms:.4f}ms [{min(pair_times):.4f}-{max(pair_times):.4f}] "
+        f"plain={plain_ms:.4f}ms {pipeline}"
         f"bound={b_ms:.4f}ms ({b_by}) bytes={bytes_moved} compares={ops}"
     )
-    return {"shape": label, "ms": ms, "ms_before": ms_before, "wrapper_ms": wrapper_ms,
-            "plain_ms": plain_ms, "pipeline_ms": pairs_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": err}
+    return rec
+
+
+def check_frontier(torch, rj, ref, timer, ops_mod, segs, n_attrs, bq, br, name):
+    """``check_tile_kernel`` on the block-diagonal schedule of the frontier
+    ``segs`` at ``bq`` x ``br``, with its pair pipeline timed."""
+    sched = ops_mod._blockdiag_schedule(segs, n_attrs, bq, br)
+    q = torch.from_numpy(sched.q).to("cuda")
+    r = torch.from_numpy(sched.r).to("cuda")
+    rows = sched.q.shape[0] + sched.r.shape[0]
+    label = f"{name} {len(segs)}seg/{rows}rows/{len(sched.tile_q)}tiles@{bq}x{br}"
+    return check_tile_kernel(
+        torch, rj, ref, timer, q, r, host_i32(torch, sched.tile_q),
+        host_i32(torch, sched.tile_r), n_attrs, bq, br, label,
+        pairs=lambda: ops_mod.segmented_range_join_pairs(
+            segs, block_q=bq, block_r=br, device="cuda", layout="blockdiag"
+        ),
+    )
+
+
+def diagonal_schedule(torch, n_seg, rows, bq, br):
+    """The block-diagonal schedule of ``n_seg`` segments of ``rows`` q and
+    ``rows`` r rows each (multiples of the block sizes), segment-major, q
+    block outer and r block inner, as ``ops._blockdiag_schedule`` builds
+    it: host int32 (tile_q, tile_r)."""
+    nqb, nrb = rows // bq, rows // br
+    seg = np.repeat(np.arange(n_seg), nqb * nrb)
+    within = np.tile(np.arange(nqb * nrb), n_seg)
+    tq = seg * nqb + within // nrb
+    tr = seg * nrb + within % nrb
+    return host_i32(torch, tq), host_i32(torch, tr)
+
+
+def host_i32(torch, a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
+
+def synthetic_schedule(torch, rj, ref, timer, rng, n_seg, rows, n_attrs, bq=256, br=256):
+    """``check_tile_kernel`` on ``n_seg`` made-up segments of ``rows`` x
+    ``rows`` boxes (``packed_boxes``), block-diagonal at ``bq`` x ``br``."""
+    q = packed_boxes(torch, rng, n_seg * rows, n_attrs, "cuda")
+    r = packed_boxes(torch, rng, n_seg * rows, n_attrs, "cuda")
+    tq, tr = diagonal_schedule(torch, n_seg, rows, bq, br)
+    label = f"{n_seg}seg x {rows}x{rows}x{n_attrs}/{tq.shape[0]}tiles@{bq}x{br}"
+    return check_tile_kernel(torch, rj, ref, timer, q, r, tq, tr, n_attrs, bq, br, label)
+
+
+def tile_operands(torch, rng, n_attrs, bq, br, nqb, nrb, pads):
+    """Packed q and r of ``nqb`` / ``nrb`` blocks: boxes that hold 0 and 1
+    and ordinary ones, the last ``pads`` rows of each side the host's pad
+    rows (lo = 1, hi = 0), which the first kind overlap."""
+    out = []
+    for n in (nqb * bq, nrb * br):
+        p = packed_boxes(torch, rng, n, n_attrs, "cuda", spanning=True)
+        p[n - pads :] = 0
+        p[n - pads :, :n_attrs] = 1
+        out.append(p)
+    return out
+
+
+def check_tile_stores(torch, ref, lib, q, r, tq, tr, n_attrs, bq, br, offset, label):
+    """A raw launch of the schedule ``tq``/``tr`` (on the card) into an
+    output ``offset`` bytes past a 16-byte boundary writes the tiles' bytes
+    and not one byte around them."""
+    n = tq.shape[0] * bq * br
+    buf = torch.full((n + 64,), 0xEE, dtype=torch.uint8, device="cuda")
+    start = 16 + offset
+    checked(lib.rj_range_join_tile_masks(
+        q.data_ptr(), r.data_ptr(), tq.data_ptr(), tr.data_ptr(), buf[start:].data_ptr(),
+        tq.shape[0], bq, br, n_attrs, torch.cuda.current_stream().cuda_stream,
+    ))
+    want = plain_tiles(torch, ref, q, r, tq, tr, n_attrs, bq, br).reshape(-1)
+    if not (torch.equal(buf[start : start + n], want)
+            and bool((buf[:start] == 0xEE).all())
+            and bool((buf[start + n :] == 0xEE).all())):
+        raise AssertionError(f"range_join_tile_masks stores at {label} offset {offset}")
+
+
+def tile_sweep(torch, rj, ref, lib, rng) -> int:
+    """The tile kernel exact at every width of TILE_WIDTHS and block size of
+    TILE_SIZES (boxes against pad rows, every block pair and repeats, raw
+    launches at each output alignment with guard bytes), at T = 1, and at
+    T past one wave; returns the count of launches checked."""
+    offsets = (0, 1, 2, 4, 8)
+    checks = 0
+    for i, (bq, br) in enumerate(TILE_SIZES):
+        for j, a in enumerate(TILE_WIDTHS):
+            q, r = tile_operands(torch, rng, a, bq, br, 2, 3, pads=5)
+            tq = np.concatenate([np.repeat(np.arange(2), 3), rng.integers(0, 2, 5)])
+            tr = np.concatenate([np.tile(np.arange(3), 2), rng.integers(0, 3, 5)])
+            tq, tr = host_i32(torch, tq), host_i32(torch, tr)
+            check_tile_stores(torch, ref, lib, q, r, tq.cuda(), tr.cuda(), a, bq, br,
+                              offsets[(i + j) % len(offsets)], f"{bq}x{br}x{a}")
+            got = rj.range_join_tile_masks(q, r, tq, tr, n_attrs=a, block_q=bq, block_r=br)
+            if not torch.equal(got, plain_tiles(torch, ref, q, r, tq.cuda(), tr.cuda(),
+                                                a, bq, br)):
+                raise AssertionError(f"range_join_tile_masks differs from plain at {bq}x{br}x{a}")
+            checks += 2
+    for n_tiles, bq, br, a in ((1, 256, 256, 2), (1, 96, 160, 5), (700, 64, 64, 2),
+                               (700, 64, 64, 9), (2000, 256, 256, 4)):
+        q, r = tile_operands(torch, rng, a, bq, br, 4, 5, pads=3)
+        tq = host_i32(torch, rng.integers(0, 4, n_tiles)).cuda()
+        tr = host_i32(torch, rng.integers(0, 5, n_tiles)).cuda()
+        for offset in (0, 1):
+            check_tile_stores(torch, ref, lib, q, r, tq, tr, a, bq, br, offset,
+                              f"T={n_tiles} {bq}x{br}x{a}")
+            checks += 1
+    return checks
 
 
 class MainPathRecorder:
@@ -738,13 +875,26 @@ def phase_kernels(torch, rj, ref, timer, ops_mod) -> dict:
                   (2000, 3000, 64)):
         masks.append(synthetic_mask(torch, rj, ref, timer, rng, *shape))
     masks.append(synthetic_mask(torch, rj, ref, timer, rng, 2000, 3000, 64, seg_lane=True))
-    # the block-diagonal layout on the accel ablation's ragged frontier:
-    # 24 segments of 96-224 rows a side (~7,800 rows), 2 attributes
+    # the block-diagonal layout: exact over widths, block sizes, pad rows and
+    # output alignments; timed on the accel ablation's ragged frontier (24
+    # segments of 96-224 rows a side, ~7,800 rows, 2 attributes) and on
+    # TILE_SCHEDULES, the first beside the mask's 20,000 x 20,000 x 4 per cell
+    tiles = records["range_join_tile_masks"]
+    checks = tile_sweep(torch, rj, ref, timer.lib, rng)
+    log(f"  range_join_tile_masks: {checks} launches exact (widths {TILE_WIDTHS}, "
+        f"sizes {TILE_SIZES}, pad rows, repeated tiles, T = 1 to 2000, guard bytes)")
     segs = ragged_frontier(24, 96, 224, n_attrs=2, seed=11)
     for g in (64, 128, 256):
-        records["range_join_tile_masks"].append(
-            check_tile_kernel(torch, rj, ref, timer, ops_mod, segs, 2, g, g, "ragged")
-        )
+        tiles.append(check_frontier(torch, rj, ref, timer, ops_mod, segs, 2, g, g, "ragged"))
+    for n_seg, rows, a in TILE_SCHEDULES:
+        tiles.append(synthetic_schedule(torch, rj, ref, timer, rng, n_seg, rows, a))
+    full = tiles[-len(TILE_SCHEDULES)]
+    mask = next(m for m in masks if m["shape"] == "20000x20000x4")
+    ratio = (full["ms"] / full["cells"]) / (mask["ms"] / 4e8)
+    full["per_cell_vs_mask"] = ratio
+    log(f"  tile kernel ms per cell at {full['shape']} / mask's at 20000x20000x4: "
+        f"{ratio:.3f}" + (f" (before: {(full['ms_before'] / full['cells']) / (mask['ms_before'] / 4e8):.3f})"
+                          if full["ms_before"] is not None else ""))
     return records
 
 
@@ -777,7 +927,7 @@ def phase_main_operands(torch, rj, ref, timer, ops_mod, seen) -> tuple[dict, dic
     if not fronts:
         raise AssertionError("phase 4 launched no block-diagonal frontier")
     for i, (_, segs, n_attrs, bq, br) in enumerate(fronts):
-        rec = check_tile_kernel(
+        rec = check_frontier(
             torch, rj, ref, timer, ops_mod, segs, n_attrs, bq, br, f"phase4-wave{i}"
         )
         records["range_join_tile_masks"].append(rec)
@@ -787,7 +937,7 @@ def phase_main_operands(torch, rj, ref, timer, ops_mod, seen) -> tuple[dict, dic
     _, segs, n_attrs, _, _ = fronts[0]
     for sweep, order in (("pass1", TILE_GEOMETRIES), ("pass2", TILE_GEOMETRIES[::-1])):
         for g in order:
-            records["range_join_tile_masks"].append(check_tile_kernel(
+            records["range_join_tile_masks"].append(check_frontier(
                 torch, rj, ref, timer, ops_mod, segs, n_attrs, *g, f"phase4-wave0 {sweep}"
             ))
     return main, records
@@ -1281,6 +1431,26 @@ def run_phase(torch, wrappers, name, fn):
     return out
 
 
+def ptxas_summary(text: str) -> list:
+    """One line per compiled kernel of an ``nvcc -Xptxas -v`` log: its name
+    with its template arguments (a tile kernel's Geometry: r rows, threads,
+    attributes a pass), registers and spill bytes."""
+    lines, name = [], None
+    for line in text.splitlines():
+        entry = re.search(r"entry function '[^']*?([a-z][a-z_]*_kernel)(\w*?)E[vP]", line)
+        if entry:
+            args = re.findall(r"Li(\d+)E", entry.group(2))
+            name = entry.group(1) + (f"<{','.join(args)}>" if args else "")
+        elif name and "spill" in line:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            name += f" spill {spill.group(1)}/{spill.group(2)} B"
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            lines.append(f"{name} {regs.group(1)} registers")
+            name = None
+    return lines
+
+
 def main_path(wrappers, names, phase):
     """Zero the counters of ``names``, run ``phase`` (a callable), read
     them; each kernel must have launched."""
@@ -1332,12 +1502,8 @@ def main(argv=None) -> int:
     before = finish_before_build(_build, before_procs, lib) if before_procs else None
     log(f"[phase 1 build] {time.perf_counter() - t0:.2f}s -> {_build.build().name}"
         + (f" (and {args.before}, for ms_before)" if before else ""))
-    for line in _build.build().with_suffix(".log").read_text().splitlines():
-        entry = re.search(r"entry function '[^']*?([a-z]\w*?_kernel)", line)
-        if entry:
-            log(f"  ptxas: {entry.group(1)}")
-        elif "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(_build.build().with_suffix(".log").read_text()):
+        log(f"  ptxas: {line}")
     timer = KernelTimer(torch, lib, before)
 
     wrappers = {

@@ -9,10 +9,11 @@ once, the winner's result is kept so the measuring dispatch does the real
 work — and caches the winner in a small table.
 
 The segmented CUDA kernels are not tuned: they launch at
-:data:`DEFAULT_GEOMETRY`.  The tile kernel evaluates 32 q rows x 128 r rows
-per thread block whatever the tile, so ``(block_q, block_r)`` changes only
-the padding and the tile count, and ``chip_smoke.py`` (phase 6) times the
-alternatives on the card's main-path frontiers.
+:data:`DEFAULT_GEOMETRY`.  The tile kernel covers each tile with block tiles
+of 64 q rows by 256, 128 or 64 r rows, so ``(block_q, block_r)`` changes
+the padding, the tile count and the idle share of the block tiles, and
+``chip_smoke.py`` (phase 6) times the alternatives on the card's main-path
+frontiers.
 
 Backends are opaque strings and workloads run through caller-supplied
 runners, so ``repro_torch.core`` imports this without touching the kernel
@@ -35,7 +36,7 @@ __all__ = [
 ]
 
 # kernel-launch geometry: the (block_q, block_r) tile of the block-diagonal
-# schedule, a multiple of the tile kernel's 32 x 128 thread block
+# schedule, four of the tile kernel's 64 x 256 block tiles
 DEFAULT_GEOMETRY = (256, 256)
 
 # numpy-twin geometry: mask cells evaluated per row block (the twin's only

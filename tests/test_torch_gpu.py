@@ -138,6 +138,95 @@ def test_tile_kernel_equals_plain(cuda_device, bq, br):
                                  n_attrs=2, block_q=bq, block_r=br)
 
 
+def _tile_operands(rng, n_attrs, bq, br, nqb, nrb, pads):
+    """Packed operands of ``nqb`` q and ``nrb`` r blocks whose last ``pads``
+    rows are the host's pad rows (lo = 1, hi = 0); the real rows alternate
+    between boxes that hold 0 and 1 (they overlap the pads) and ordinary
+    ones."""
+    parts = []
+    for n in (nqb * bq, nrb * br):
+        p = _spanning(rng, n, n_attrs)
+        plain = _packed(rng, n, n_attrs)
+        p[1::2] = plain[1::2]
+        p[n - pads :] = 0
+        p[n - pads :, :n_attrs] = 1
+        parts.append(p)
+    return parts
+
+
+# each width around the four-attribute passes, at block sizes that take
+# each of the kernel's block tiles (64 q x 256, 128 or 64 r rows) and ragged
+# ones
+_TILE_WIDTHS = (1, 2, 3, 4, 5, 8, 9, 17, 63, 64)
+_TILE_SIZES = ((32, 32), (64, 64), (64, 128), (64, 256), (128, 128), (256, 64), (256, 128),
+               (256, 256), (96, 160))
+
+
+@pytest.mark.parametrize("bq,br", _TILE_SIZES)
+@pytest.mark.parametrize("n_attrs", _TILE_WIDTHS)
+def test_tile_kernel_widths_sizes_and_pad_rows(cuda_device, n_attrs, bq, br):
+    rng = np.random.default_rng(SEED + 7 * n_attrs + bq + br)
+    q, r = (torch.from_numpy(p).to(cuda_device)
+            for p in _tile_operands(rng, n_attrs, bq, br, 2, 3, pads=5))
+    # every block pair once, then repeats
+    tq = np.concatenate([np.repeat(np.arange(2), 3), rng.integers(0, 2, 5)]).astype(np.int32)
+    tr = np.concatenate([np.tile(np.arange(3), 2), rng.integers(0, 3, 5)]).astype(np.int32)
+    tq, tr = torch.from_numpy(tq), torch.from_numpy(tr)
+    got = rj.range_join_tile_masks(q, r, tq, tr, n_attrs=n_attrs, block_q=bq, block_r=br)
+    torch.cuda.synchronize()
+    want = ref.range_join_tile_masks_ref(
+        q, r, tq.to(cuda_device), tr.to(cuda_device), n_attrs, bq, br
+    )
+    assert torch.equal(got, want)
+    assert bool(want.any()) and not bool(want.all())
+
+
+@pytest.mark.parametrize("n_tiles,bq,br,n_attrs", [
+    (1, 256, 256, 2), (1, 96, 160, 5), (700, 64, 64, 2), (700, 64, 64, 9), (2000, 256, 256, 4),
+])
+def test_tile_kernel_one_tile_and_many_waves(cuda_device, n_tiles, bq, br, n_attrs):
+    """T = 1, and T past one wave of the card (where blocks take strips of
+    q sub-tiles)."""
+    rng = np.random.default_rng(SEED + n_tiles + n_attrs)
+    q = torch.from_numpy(_packed(rng, 4 * bq, n_attrs, coord=40)).to(cuda_device)
+    r = torch.from_numpy(_packed(rng, 5 * br, n_attrs, coord=40)).to(cuda_device)
+    tq = torch.from_numpy(rng.integers(0, 4, n_tiles).astype(np.int32))
+    tr = torch.from_numpy(rng.integers(0, 5, n_tiles).astype(np.int32))
+    got = rj.range_join_tile_masks(q, r, tq, tr, n_attrs=n_attrs, block_q=bq, block_r=br)
+    torch.cuda.synchronize()
+    want = ref.range_join_tile_masks_ref(
+        q, r, tq.to(cuda_device), tr.to(cuda_device), n_attrs, bq, br
+    )
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("bq,br", [(64, 256), (96, 160), (32, 32), (128, 128), (64, 128),
+                                   (256, 64)])
+def test_tile_kernel_stores_stay_in_bounds(cuda_device, offset, bq, br):
+    """A raw launch into an output at every alignment writes exactly the
+    tiles' bytes, at the store width the alignment and block_r allow."""
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(SEED + offset + br)
+    q, r = (torch.from_numpy(p).to(cuda_device)
+            for p in _tile_operands(rng, 2, bq, br, 2, 2, pads=3))
+    tq = torch.tensor([0, 1, 1, 0, 1], dtype=torch.int32, device=cuda_device)
+    tr = torch.tensor([0, 0, 1, 1, 1], dtype=torch.int32, device=cuda_device)
+    n = 5 * bq * br
+    buf = torch.full((n + 64,), 0xEE, dtype=torch.uint8, device=cuda_device)
+    start = 16 + offset
+    err = _build.load().rj_range_join_tile_masks(
+        q.data_ptr(), r.data_ptr(), tq.data_ptr(), tr.data_ptr(), buf[start:].data_ptr(),
+        5, bq, br, 2, torch.cuda.current_stream().cuda_stream,
+    )
+    _build.check_launch(err, "range_join_tile_masks")
+    torch.cuda.synchronize()
+    want = ref.range_join_tile_masks_ref(q, r, tq, tr, 2, bq, br).reshape(-1)
+    assert torch.equal(buf[start : start + n], want)
+    assert bool((buf[:start] == 0xEE).all()) and bool((buf[start + n :] == 0xEE).all())
+
+
 @pytest.mark.parametrize("layout", ["dense", "blockdiag"])
 def test_segmented_pairs_on_card_equal_cpu(cuda_device, layout):
     rng = np.random.default_rng(SEED)

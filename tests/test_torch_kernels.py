@@ -103,24 +103,42 @@ def test_mask_rejects_malformed_operands():
 # --------------------------------------------------------------------------- #
 # range_join_tile_masks
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("bq,br", [(32, 32), (64, 128), (128, 64)])
-def test_tile_masks_match_pallas(bq, br):
-    rng = np.random.default_rng(SEED + bq + br)
+def _spanning_pads(rng, n, n_attrs, pads):
+    """Packed rows: odd rows ``_packed``'s boxes, even rows boxes that hold
+    0 and 1 in every attribute (lo <= 0, hi >= 1), and the last ``pads`` rows
+    the segmented packer's pad rows (lo = 1, hi = 0), which the spanning
+    boxes overlap."""
+    p = _packed(rng, n, n_attrs, coord=6)
+    p[0::2, :n_attrs] = -rng.integers(0, 4, (len(p[0::2]), n_attrs))
+    p[0::2, n_attrs : 2 * n_attrs] = 1 + rng.integers(0, 4, (len(p[0::2]), n_attrs))
+    p[n - pads :] = 0
+    p[n - pads :, :n_attrs] = 1
+    return p
+
+
+# widths on both sides of the CUDA kernel's four-attribute passes, one pass
+# and a sparse tail
+@pytest.mark.parametrize("bq,br", [(32, 32), (64, 128), (128, 64), (64, 256)])
+@pytest.mark.parametrize("n_attrs", [1, 2, 4, 5, 64])
+def test_tile_masks_match_pallas(n_attrs, bq, br):
+    rng = np.random.default_rng(SEED + bq + br + n_attrs)
     nqb, nrb = 3, 4
-    q, r = _packed(rng, nqb * bq, 2), _packed(rng, nrb * br, 2)
+    q = _spanning_pads(rng, nqb * bq, n_attrs, pads=3)
+    r = _spanning_pads(rng, nrb * br, n_attrs, pads=5)
     tile_q = rng.integers(0, nqb, 7).astype(np.int32)
     tile_r = rng.integers(0, nrb, 7).astype(np.int32)
     want = np.asarray(
         jrj.range_join_tile_masks(
             jnp.asarray(q), jnp.asarray(r), jnp.asarray(tile_q), jnp.asarray(tile_r),
-            n_attrs=2, block_q=bq, block_r=br, interpret=True,
+            n_attrs=n_attrs, block_q=bq, block_r=br, interpret=True,
         )
     )
     got = trj.range_join_tile_masks(
         torch.from_numpy(q), torch.from_numpy(r),
         torch.from_numpy(tile_q), torch.from_numpy(tile_r),
-        n_attrs=2, block_q=bq, block_r=br,
+        n_attrs=n_attrs, block_q=bq, block_r=br,
     )
+    assert want.any() and not want.all()
     np.testing.assert_array_equal(got.numpy(), want.astype(np.uint8))
 
 
