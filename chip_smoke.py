@@ -47,12 +47,24 @@ Phases:
    relation over a 2048 x 2048 array; then the kernel against its plain
    version on made-up tables (1 to 2^20 rows, 0 to 126 keys), edge rows
    and those operands, timed as in phase 2, and ``ops.run_boundaries`` on
-   the 4,194,304 rows on the host clock.
+   the 4,194,304 rows on the host clock;
+9. the sharded store (``ShardedDSLog``, four shards on the one card):
+   (a) ``ShardedDSLog.open`` with the hash policy ingests phase 3's
+   workflows with reuse on and answers phase 3's queries (merged answers
+   byte for byte, the others cell for cell: a frontier crossing shards
+   ships merged), with boxes exchanged between shards; (b) phase 4's accel
+   DAG on an affinity policy that spreads its branches over the shards,
+   equal to phase 4's answer; (c) a checkpointed close, a cold
+   ``ShardedDSLog.load`` whose one-shard query loads only that shard, the
+   queries again, more ingest, a crash and its recovery; (d) the port's
+   ``fsck`` on phase 7's stores and this one, and ``health(run_fsck=True)``;
+   (e) ``capture_jacobian`` on the card against ``oplib``'s lineage.
 
-Phases 3-5 are the port's main path, phase 7 the store's and phase 8's
-``ops.run_boundaries`` calls the run-boundary kernel's: the launch counters
-are zeroed before each of those and read after it, and each path's kernels
-must have launched.  The JSON line reports phase 6's and phase 8's numbers
+Phases 3-5 are the port's main path, phase 7 the store's, phase 8's
+``ops.run_boundaries`` calls the run-boundary kernel's and phase 9 the
+sharded store's: the launch counters are zeroed before each of those and
+read after it, and each path's kernels must have launched (in phase 9,
+``range_join_mask`` in step a and ``range_join_tile_masks`` in step b).  The JSON line reports phase 6's and phase 8's numbers
 on the main paths' own operands.  Any failure raises and exits non-zero.
 Without CUDA, or without the port beside this script, it exits non-zero
 and prints no result.  The last three stdout lines are the card's name and
@@ -128,6 +140,8 @@ RB_SIDE = 2048
 # query cells)
 FIG89_SIZES = (256, 20_000, 128, 6, 40_000)
 ACCEL = ((32, 31), 20, 2, 330)
+# phase 9: shards of the sharded store (all on the one card)
+SHARDS = 4
 
 
 def log(msg: str) -> None:
@@ -987,6 +1001,18 @@ def check_answers(got: dict, want: dict, what: str) -> None:
             raise AssertionError(f"{what}: answer {key} differs from phase 3's")
 
 
+def check_sharded_answers(got: dict, want: dict, what: str) -> None:
+    """A sharded store's answers against phase 3's: the same boxes where
+    merged, the same cells where not (a frontier that crosses shards ships
+    merged, as the reference's ``ShardedQueryPlanner`` does)."""
+    for key, box in got.items():
+        merge = key[-1]
+        same = (same_box(box, want[key]) if merge else
+                np.array_equal(box_flat_cells(box), box_flat_cells(want[key])))
+        if not same:
+            raise AssertionError(f"{what}: answer {key} differs from phase 3's")
+
+
 def phase_fig89(core, C, sizes, device, seen) -> tuple[dict, float]:
     """One in-memory store per workflow, answers checked against the
     raw-join oracle; returns the answers and the summed ingest seconds."""
@@ -1216,6 +1242,206 @@ def phase_store(core, C, sizes, p3, accel, device, workdir) -> dict:
         "cold_ms": cold_ms, "warm_ms": warm_ms, "view_hit_ms": view_ms,
         "cache_hit_ms": cache_ms, "bytes_on_disk": disk, "wal_replayed": replayed,
     }
+
+
+# --------------------------------------------------------------------------- #
+# The sharded store (phase 9)
+# --------------------------------------------------------------------------- #
+def accel_pins(branches, hops, n_shards):
+    """Affinity pins that spread the accel DAG's branches over the shards."""
+    pins = {"src": 0, "out": 1 % n_shards}
+    for b in range(branches):
+        for h in range(hops):
+            pins[f"b{b}h{h}"] = b % n_shards
+    return pins
+
+
+def first_cells(shape, n=16):
+    return np.stack(np.unravel_index(np.arange(min(n, int(np.prod(shape)))), shape), axis=1)
+
+
+def jacobian_twins(torch):
+    """``oplib`` ops and their torch functions (with each operand's shape
+    from the op's first registry shape), for phase 9e."""
+    return {
+        "exp": (torch.exp, lambda s: [s]),
+        "add": (lambda a, b: a + b, lambda s: [s, s]),
+        "mul_rowvec": (lambda a, v: a * v, lambda s: [s, (s[-1],)]),
+        "sum_axis1": (lambda x: x.sum(dim=1), lambda s: [s]),
+        "softmax": (lambda x: torch.softmax(x, -1), lambda s: [s]),
+        "matmul": (lambda a, b: a @ b, lambda s: [s, (s[1], s[1] + 2)]),
+        "transpose": (lambda x: x.T, lambda s: [s]),
+        "tile": (lambda x: torch.tile(x, (2, 2)), lambda s: [s]),
+        "roll": (lambda x: torch.roll(x, 2, 0), lambda s: [s]),
+    }
+
+
+def phase_sharded(torch, core, C, oplib, fsck, wrappers, card, sizes, p3, accel, store_roots,
+                  workdir) -> dict:
+    """The sharded store at phase 3's and phase 4's sizes (module doc, phase
+    9).  ``p3`` is phase 3's (answers, ingest seconds), ``accel`` phase 4's
+    (store, answer, shape, branches, hops, n_cells), ``store_roots`` phase
+    7's store directories.  Returns each step's numbers."""
+    p3_answers = p3[0]
+    steps = {}
+
+    def step(name, kernel, fn):
+        torch.cuda.synchronize()
+        before = {k: w.launches for k, w in wrappers.items()}
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+        if kernel is not None and launched[kernel] <= 0:
+            raise AssertionError(f"phase 9{name}: {kernel} never launched")
+        nums = " ".join(
+            f"{k}={v:.3f}" if isinstance(v, float) and k.endswith("_s")
+            else f"{k}={v:.1f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in out.items()
+        )
+        log(f"[phase 9{name}] wall={wall:.2f}s {nums} "
+            + " ".join(f"{k}+={v}" for k, v in launched.items()) + f" | {card}")
+        steps[name] = {"wall_s": wall, **out, "launches": launched}
+
+    flows = fig89_workflows(C, *sizes)
+    root = os.path.join(workdir, "sharded")
+    state = {}
+
+    def ingest_and_query():
+        store = core.ShardedDSLog.open(root, n_shards=SHARDS, device="cuda")
+        paths = {
+            wf: (register_workflow(store, wf, rels, reuse=None), rels[0].in_shape)
+            for wf, rels in flows
+        }
+        # an in-place update of the first workflow's output, logged as a
+        # new version (DSLog.version): an array's versions share its shard,
+        # so this hop's plan touches one shard (phase 9c loads only it)
+        out = paths[flows[0][0]][0][-1]
+        inplace = store.version(out)
+        store.add_lineage(out, inplace, C.identity_lineage(store.arrays[out].shape),
+                          op_name="inplace")
+        store.commit()
+        answers, ms = run_fig89_queries(store, paths)
+        check_sharded_answers(answers, p3_answers, "sharded store")
+        touched = sorted({k for names, _ in paths.values()
+                          for k in store.planner.plan(names[0], [names[-1]]).shards_touched()})
+        exchanged = store.io_stats["boxes_exchanged"]
+        if exchanged <= 0 or len(touched) < 2:
+            raise AssertionError(f"sharded store: boxes_exchanged={exchanged} "
+                                 f"shards touched={touched}")
+        state.update(store=store, paths=paths, route=(out, inplace))
+        return {"query_ms": ms, "boxes_exchanged": exchanged, "shards_touched": len(touched),
+                "shards_loaded": len(store.loaded_shards()),
+                "boundary_edges": len(store.sgraph.boundary)}
+
+    step("a sharded ingest + fig8/9 queries", "range_join_mask", ingest_and_query)
+
+    def accel_dag():
+        _, want, shape, branches, hops, n_cells = accel
+        store = core.ShardedDSLog(
+            n_shards=SHARDS, device="cuda",
+            policy=core.AffinityShardPolicy(SHARDS, accel_pins(branches, hops, SHARDS)),
+        )
+        store.views.enabled = False  # the answer comes from the joins
+        build_accel_dag(store, core.LineageRelation, shape, branches, hops)
+        t0 = time.perf_counter()
+        got = store.prov_query("src", "out", accel_cells(shape, n_cells), batched=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not same_box(got, want):
+            raise AssertionError("sharded accel DAG: answer differs from phase 4's")
+        return {"query_ms": ms, "boxes_exchanged": store.io_stats["boxes_exchanged"],
+                "tiles_visited": store.io_stats["batch_tiles_visited"],
+                "shards_loaded": len(store.loaded_shards())}
+
+    step("b sharded accel DAG", "range_join_tile_masks", accel_dag)
+
+    def reload_and_recover():
+        store, paths = state["store"], state["paths"]
+        u, v = state["route"]
+        if len(store.planner.plan(u, [v]).shards_touched()) != 1:
+            raise AssertionError(f"{u}->{v} touches more than one shard")
+        shape = store.arrays[u].shape
+        cells = first_cells(shape)  # never asked before: no cached answer
+        t0 = time.perf_counter()
+        store.close()  # checkpoint
+        checkpoint_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cold = core.ShardedDSLog.load(root, device="cuda")
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = cold.prov_query(u, v, cells)
+        one_ms = (time.perf_counter() - t0) * 1e3
+        loaded = cold.io_stats["shards_loaded"]
+        # the hop is an identity: the answer is the query's cells
+        if not np.array_equal(box_flat_cells(got), np.ravel_multi_index(cells.T, shape)):
+            raise AssertionError(f"cold load: {u}->{v} answer differs from its cells")
+        if loaded != 1 or len(cold.loaded_shards()) != 1:
+            raise AssertionError(f"cold load: {u}->{v} loaded {cold.loaded_shards()}")
+        answers, cold_ms = run_fig89_queries(cold, paths)
+        check_sharded_answers(answers, p3_answers, "sharded store (cold)")
+        # more ingest, then a crash: only the WALs hold it
+        store = core.ShardedDSLog.open(root, device="cuda")
+        extra, rels = random_workflow(C, 5, len(flows), sizes[4])
+        extra_path = register_workflow(store, extra, rels, reuse=None)
+        store.commit()
+        store.close(checkpoint=False)
+        t0 = time.perf_counter()
+        rec = core.ShardedDSLog.load(root, device="cuda")
+        recover_s = time.perf_counter() - t0
+        replayed = dict(rec.io_stats).get("wal_replayed", 0)
+        if replayed <= 0:
+            raise AssertionError("sharded load() replayed no WAL record after the crash")
+        again, rec_ms = run_fig89_queries(rec, paths)
+        check_sharded_answers(again, p3_answers, "recovered sharded store")
+        got, _ = fig89_queries(rec, extra, extra_path, rels[0].in_shape)
+        for (_, sel, _), res in got.items():
+            if not np.array_equal(box_flat_cells(res),
+                                  forward_join_rows(rels, query_cells(rels[0].in_shape, sel))):
+                raise AssertionError(f"recovered sharded store: {extra} sel={sel} differs")
+        state["recovered"] = rec
+        return {"route": f"{u}->{v}", "one_shard_query_ms": one_ms,
+                "shards_loaded_by_it": loaded, "checkpoint_s": checkpoint_s, "load_s": load_s,
+                "query_ms_cold": cold_ms, "recover_s": recover_s, "wal_replayed": replayed,
+                "query_ms_recovered": rec_ms,
+                "boxes_exchanged": rec.io_stats["boxes_exchanged"],
+                "shards_loaded": rec.io_stats["shards_loaded"]}
+
+    step("c checkpoint, cold load, crash + recovery", None, reload_and_recover)
+
+    def verify():
+        out = {}
+        for label, path in [*store_roots.items(), ("phase9", root)]:
+            t0 = time.perf_counter()
+            report = fsck.fsck_store(path)
+            if not report.ok:
+                raise AssertionError(f"fsck {label}: " + "; ".join(map(str, report.errors)))
+            out[f"fsck_{label}_s"] = time.perf_counter() - t0
+            out[f"fsck_{label}_warnings"] = len(report.warnings)
+        health = state["recovered"].health(run_fsck=True)
+        if health["fsck"] is None or not health["fsck"]["ok"]:
+            raise AssertionError(f"health(run_fsck=True): {health['flags']}")
+        out["health_fsck_findings"] = len(health["fsck"]["findings"])
+        out["health_flags"] = len(health["flags"])
+        return out
+
+    step("d fsck", None, verify)
+
+    def jacobians():
+        twins = jacobian_twins(torch)
+        rng = np.random.default_rng(3)
+        for name, (f, shapes) in twins.items():
+            spec = oplib.OPS[name]
+            args = [rng.random(s) + 0.5 for s in shapes(spec.shapes[0])]
+            rels = C.capture_jacobian(f, *args, device="cuda")
+            for (_, pos), rel in spec.lineage(spec.shapes[0], np.random.default_rng(0)).items():
+                if rels[pos] != rel:
+                    raise AssertionError(f"capture_jacobian {name} operand {pos} "
+                                         "differs from oplib's lineage")
+        return {"ops": len(twins)}
+
+    step("e capture_jacobian vs oplib", None, jacobians)
+    return steps
 
 
 # --------------------------------------------------------------------------- #
@@ -1487,7 +1713,8 @@ def main(argv=None) -> int:
         from repro_torch.kernels import ops as ops_mod
         from repro_torch.kernels import range_join as rj
         from repro_torch.kernels import run_boundary as rb
-        from repro_torch.core import intervals, provrc
+        from repro_torch.core import intervals, oplib, provrc
+        from repro_torch.tools import fsck
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})", file=sys.stderr)
         return 2
@@ -1548,29 +1775,40 @@ def main(argv=None) -> int:
     # the store's path, phase 7
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
+    # phases 7-9 keep their stores in one directory (phase 9 checks phase 7's)
     with tempfile.TemporaryDirectory(prefix="smoke_store_", dir=build_dir) as workdir:
         store, store_launches = main_path(wrappers, joins, lambda: run_phase(
             torch, wrappers, "7 durable store",
             lambda: phase_store(core, C, FIG89_SIZES, p3, (*accel, *ACCEL), "cuda", workdir),
         ))
-    log(f"store-path launches: {store_launches}")
+        log(f"store-path launches: {store_launches}")
 
-    # the run-boundary path, phase 8
-    (tables, big), rb_launches = main_path(
-        wrappers, ("run_boundaries_packed",),
-        lambda: run_phase(
-            torch, wrappers, "8a ops.run_boundaries on the main path's tables",
-            lambda: phase_rb_main(ops_mod, intervals, provrc, seen),
-        ),
-    )
-    launches.update(rb_launches)
-    log(f"run-boundary path launches: {rb_launches}")
-    rb_main, rb_records = run_phase(
-        torch, wrappers, "8b run_boundaries_packed vs plain",
-        lambda: phase_rb_checks(torch, rb, ref, timer, ops_mod, tables, big),
-    )
-    main_recs["run_boundaries_packed"] = rb_main
-    main_records["run_boundaries_packed"] = rb_records
+        # the run-boundary path, phase 8
+        (tables, big), rb_launches = main_path(
+            wrappers, ("run_boundaries_packed",),
+            lambda: run_phase(
+                torch, wrappers, "8a ops.run_boundaries on the main path's tables",
+                lambda: phase_rb_main(ops_mod, intervals, provrc, seen),
+            ),
+        )
+        launches.update(rb_launches)
+        log(f"run-boundary path launches: {rb_launches}")
+        rb_main, rb_records = run_phase(
+            torch, wrappers, "8b run_boundaries_packed vs plain",
+            lambda: phase_rb_checks(torch, rb, ref, timer, ops_mod, tables, big),
+        )
+        main_recs["run_boundaries_packed"] = rb_main
+        main_records["run_boundaries_packed"] = rb_records
+
+        # the sharded store's path, phase 9 (it also checks phase 7's stores)
+        store_roots = {"phase7_fig89": os.path.join(workdir, "fig89"),
+                       "phase7_accel": os.path.join(workdir, "accel")}
+        sharded, shard_launches = main_path(wrappers, joins, lambda: run_phase(
+            torch, wrappers, "9 sharded store",
+            lambda: phase_sharded(torch, core, C, oplib, fsck, wrappers, card, FIG89_SIZES, p3,
+                                  (*accel, *ACCEL), store_roots, workdir),
+        ))
+    log(f"shard-path launches: {shard_launches}")
 
     kernels = []
     for name, rec in main_recs.items():
@@ -1591,10 +1829,12 @@ def main(argv=None) -> int:
             "library_ms": None,
             "wrapper_ms": rec["wrapper_ms"],
             "shape": rec["shape"],
-            **({"launches_store_path": store_launches[name]} if name in joins else {}),
+            **({"launches_store_path": store_launches[name],
+                "launches_shard_path": shard_launches[name]} if name in joins else {}),
             **({"ops_ms": rec["ops_ms"]} if "ops_ms" in rec else {}),
         })
     log(f"store: {json.dumps(store)}")
+    log(f"sharded: {json.dumps(sharded)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -5,10 +5,12 @@ Query Processing for Fine-Grained Array Lineage").  Public API:
 
     from repro_torch.core import DSLog, QueryBox, compress, LineageRelation
 
-``DSLog()``, ``DSLog.open()`` and ``DSLog.load()`` run their dense θ-joins
-on CUDA by default; pass ``device="cpu"`` for the plain CPU paths.
+``DSLog()``, ``DSLog.open()`` and ``DSLog.load()``, their sharded
+counterparts on ``ShardedDSLog`` and ``capture_jacobian`` run on CUDA by
+default; pass ``device="cpu"`` for the plain CPU paths.
 """
 
+from .capture import capture_jacobian  # noqa: F401
 from .catalog import ArrayDef, DSLog, LineageEntry  # noqa: F401
 from .commit import CommitPipeline, LeaseHeldError, WriterLease  # noqa: F401
 from .graph import CycleError, LineageGraph  # noqa: F401
@@ -27,5 +29,15 @@ from .query import (  # noqa: F401
 )
 from .relation import LineageRelation  # noqa: F401
 from .reuse import ReusePredictor, generalize, instantiate  # noqa: F401
+from .shard import (  # noqa: F401
+    AffinityShardPolicy,
+    ExchangeStep,
+    HashShardPolicy,
+    ShardedDSLog,
+    ShardedLineageGraph,
+    ShardedQueryPlan,
+    ShardedQueryPlanner,
+    ShardPolicy,
+)
 from .table import CompressedTable, TableHandle  # noqa: F401
 from .wal import WalRecord, WriteAheadLog  # noqa: F401

@@ -1,18 +1,18 @@
 """Lineage capture adapters (paper §II.A, §VII.A), ported from
 ``repro.core.capture``.
 
-DSLog is agnostic to capture methodology; this module supplies two of the
-three families the paper evaluates:
+DSLog is agnostic to capture methodology; this module supplies the three
+families the paper evaluates:
 
 1. **Symbolic captures** — for data-*independent* array ops (elementwise,
    reduce, matmul, conv, reshape, slice, …) the lineage is a pure function of
    shapes/op-args, so we generate the relation directly from the op spec.
 2. **Value-dependent captures** — sort/gather/group-by/inner-join lineage is
    computed from the actual values (the paper's custom tracking functions).
-
-The third, the jacobian-sparsity oracle ``capture_jacobian``, is still to be
-ported (ROADMAP.md §1 "Still to port" item 3, via
-``torch.func.jacfwd``).
+3. **Oracle capture** — jacobian-sparsity probing of a function of
+   tensors (``torch.func.jacfwd``); used as ground truth in property tests
+   and for ops without a symbolic adapter (the role the paper's LIME/D-RISE
+   captures play).
 
 All generators are vectorized numpy — they routinely emit 10⁶+ row
 relations for the compression benchmarks.
@@ -26,6 +26,7 @@ from .relation import LineageRelation
 
 __all__ = [
     "all_indices",
+    "capture_jacobian",
     "identity_lineage",
     "broadcast_lineage",
     "reduce_lineage",
@@ -397,3 +398,52 @@ def xai_bipartite_lineage(
     return LineageRelation(
         (n_out,), in_shape, np.concatenate(outs), np.concatenate(inns)
     ).canonical()
+
+
+# --------------------------------------------------------------------------- #
+# Oracle capture (jacobian sparsity)
+# --------------------------------------------------------------------------- #
+def capture_jacobian(
+    f, *in_arrays, eps: float = 0.0, device="cuda"
+) -> list[LineageRelation]:
+    """Ground-truth lineage of ``f(*in_arrays)`` via jacobian sparsity.
+
+    Returns one relation per input.  ``f`` takes and returns tensors; the
+    inputs (arrays or tensors) go in as float32 tensors on ``device``
+    (``"cuda"`` raises without CUDA), the precision ``jax.jacfwd`` runs the
+    reference's float64 inputs in (the repo never enables
+    ``jax_enable_x64``), so a derivative that underflows there is zero here
+    too and the nonzero patterns agree.  Inputs should be generic (random,
+    tie-free) so that structurally-present dependencies have nonzero
+    derivatives.  Used as the property-test oracle.
+    """
+    import torch
+
+    from repro_torch.kernels.ops import resolve_device
+
+    dev = resolve_device(device)
+    tensors = [
+        torch.as_tensor(np.asarray(a, np.float64), dtype=torch.float32, device=dev)
+        for a in in_arrays
+    ]
+    out = f(*tensors)
+    out_shape = tuple(out.shape) if out.dim() else (1,)
+    n_out = int(np.prod(out_shape))
+    rels = []
+    for pos, a in enumerate(tensors):
+        def fi(x, _pos=pos):
+            args = list(tensors)
+            args[_pos] = x
+            return f(*args).reshape(-1)
+
+        jac = torch.func.jacfwd(fi)(a).reshape(n_out, a.numel())
+        oflat, iflat = torch.nonzero(jac.abs() > eps, as_tuple=True)
+        rels.append(
+            LineageRelation.from_flat(
+                out_shape,
+                tuple(a.shape) if a.dim() else (1,),
+                oflat.cpu().numpy(),
+                iflat.cpu().numpy(),
+            )
+        )
+    return rels

@@ -35,7 +35,9 @@ Growth beyond the paper: :meth:`DSLog.compact` vacuums blobs orphaned by
 :meth:`DSLog.drop_lineage` and predictor updates; :meth:`DSLog.version`
 mints ``acc@k`` names for in-place ops; executed hops feed their true pair
 counts back into the manifest (:meth:`DSLog.record_hop` /
-:meth:`DSLog.hop_measurement`) so replanning uses measured selectivities.
+:meth:`DSLog.hop_measurement`) so replanning uses measured selectivities;
+and :class:`~repro_torch.core.shard.ShardedDSLog` serves this whole surface
+over N independently persisted shards.
 """
 
 from __future__ import annotations
@@ -169,7 +171,8 @@ def _write_blob(path: str, blob: bytes) -> None:
     The manifest only becomes visible through :func:`_atomic_write`'s
     rename; every blob it references must already be on stable storage by
     then, or a crash right after the rename could publish a manifest
-    pointing at torn blobs.
+    pointing at torn blobs.  Module-level because ``ShardedDSLog`` borrows
+    the ``DSLog`` writer methods that call it.
     """
     with open(path, "wb") as f:
         f.write(blob)
@@ -180,8 +183,8 @@ def _write_blob(path: str, blob: bytes) -> None:
 def is_catalog_blob(fn: str) -> bool:
     """Is ``fn`` a blob the catalog owns (and may therefore vacuum)?
 
-    The reference's ``fsck`` uses the same rule for its orphan-blob check,
-    so GC and verification agree on ownership.
+    Shared by :func:`_vacuum_dir`'s sweep and ``repro_torch.tools.fsck``'s
+    orphan-blob check so GC and verification agree on ownership.
     """
     return (
         (fn.startswith("lineage_") and fn.endswith((".prvc", ".idx")))
@@ -198,8 +201,9 @@ def manifest_referenced_files(
     ``lineage_recs`` is an iterable of persisted lineage records (the
     manifest's ``lineage`` list, or ``DSLog._persisted.values()`` — same
     schema); ``predictor_chunk``/``views_chunk`` are the manifest's
-    ``predictor``/``views`` chunks or ``None``.  :meth:`DSLog.compact`
-    vacuums everything else, as the reference's does.
+    ``predictor``/``views`` chunks or ``None``.  Single source of truth
+    shared by :meth:`DSLog.compact` and ``repro_torch.tools.fsck``, so the
+    vacuum and the orphan check can't drift.
     """
     referenced = {"catalog.json"}
     for rec in lineage_recs:
@@ -458,8 +462,7 @@ class DSLog:
         return self.metrics.snapshot()
 
     def health(self, run_fsck: bool = True) -> dict:
-        """Registry red-flags (``repro_torch.obs.export``); ``run_fsck=True``
-        raises until ``fsck`` is ported."""
+        """Registry red-flags + ``fsck`` findings (``repro_torch.obs.export``)."""
         from repro_torch.obs.export import health as _health
 
         return _health(self, run_fsck=run_fsck)
@@ -1540,9 +1543,8 @@ class DSLog:
             meta = json.load(f)
         if meta.get("sharded"):
             raise ValueError(
-                f"{root!r} holds a sharded catalog root; sharded stores are "
-                "not ported to repro_torch yet (ROADMAP.md §1 'Still to "
-                "port' item 4)"
+                f"{root!r} holds a sharded catalog root; open it with "
+                "repro_torch.core.shard.ShardedDSLog.load"
             )
         version = int(meta.get("version", 1))
         for n, shp in meta["arrays"].items():

@@ -8,9 +8,8 @@ the reference's ``validate_telemetry`` accepts a sidecar the port wrote.
 schema check used by tests and the CI smoke step; ``render_prometheus``
 emits the text exposition format and ``parse_prometheus`` is the
 minimal line validator the smoke step asserts with.  ``health``
-reports the registry's red flags; ``fsck``'s findings join it once the
-store tools are ported (``ROADMAP.md`` §1 "Still to port" item 4), and
-until then ``run_fsck=True`` raises.
+combines registry red-flag heuristics with the port's ``fsck`` findings
+JSON (``repro_torch.tools.fsck``).
 """
 
 from __future__ import annotations
@@ -179,18 +178,7 @@ def _flag(flags: list, severity: str, name: str, detail: str) -> None:
 
 
 def health(store, run_fsck: bool = True) -> dict:
-    """Red-flag report from the registry's heuristics.
-
-    ``run_fsck=True`` raises :class:`NotImplementedError`: the store
-    verifier (``fsck``) is not ported yet (``ROADMAP.md`` §1 "Still to
-    port" item 4); ``run_fsck=False`` reports the flags alone.
-    """
-    if run_fsck:
-        raise NotImplementedError(
-            "health(run_fsck=True) needs fsck, which is not ported to "
-            "repro_torch yet (ROADMAP.md §1 'Still to port' item 4: "
-            "tools); pass run_fsck=False"
-        )
+    """Red-flag report: registry heuristics + ``fsck`` findings JSON."""
     snap = telemetry_snapshot(store)
     counters = {}
     for row in snap.get("counters", ()):
@@ -236,10 +224,31 @@ def health(store, run_fsck: bool = True) -> dict:
             f"answer-cache hit rate {hits}/{hits + misses}",
         )
 
+    fsck_report = None
+    ok = True
+    if run_fsck and getattr(store, "root", None):
+        try:
+            from repro_torch.tools.fsck import fsck_store
+
+            fsck_report = fsck_store(store.root).to_json()
+            # findings follow the shared analysis-tool schema
+            # (tools/findings.py): rule = fsck category, message = detail
+            for finding in fsck_report.get("findings", ()):
+                if finding.get("severity") == "error":
+                    ok = False
+                    _flag(
+                        flags,
+                        "error",
+                        f"fsck:{finding.get('rule')}",
+                        finding.get("message", ""),
+                    )
+        except Exception as exc:  # fsck must never take the store down
+            _flag(flags, "info", "fsck-unavailable", repr(exc))
+
     return {
-        "ok": not any(f["severity"] == "error" for f in flags),
+        "ok": ok and not any(f["severity"] == "error" for f in flags),
         "flags": flags,
-        "fsck": None,
+        "fsck": fsck_report,
         "counters": counters,
         "generated_at": snap["generated_at"],
     }

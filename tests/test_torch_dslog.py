@@ -279,6 +279,9 @@ def test_import_leaves_jax_out():
         "import repro_torch.kernels.run_boundary, repro_torch.kernels.ref\n"
         "import repro_torch.core.wal, repro_torch.core.commit, repro_torch.core.reuse\n"
         "import repro_torch.core.views, repro_torch.core.table, repro_torch.obs.export\n"
+        "import repro_torch.core.shard, repro_torch.core.oplib, repro_torch.lineage\n"
+        "import repro_torch.tools.fsck, repro_torch.tools.mkstore, repro_torch.tools.dstat\n"
+        "import repro_torch.tools.racecheck, repro_torch.tools.lockorder\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
@@ -316,15 +319,21 @@ def test_dslog_without_gpu_raises_and_never_falls_back():
 
 
 def test_unported_surface_raises_naming_the_roadmap(tmp_path):
-    # fsck (store tools) and sharded stores are still queued
-    log = tcat.DSLog(root=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        log.health()
+    # fsck and sharded stores are ported now: health() runs the port's fsck,
+    # and DSLog.load refuses a sharded root naming the sharded loader
+    log = tcat.DSLog.open(str(tmp_path), device="cpu")
+    log.add_lineage("a", "b", tC.identity_lineage((4,)))
+    log.close()
+    log = tcat.DSLog.load(str(tmp_path), device="cpu")
+    report = log.health()
+    assert report["ok"] and report["fsck"]["ok"] and report["fsck"]["findings"] == []
+    assert report["fsck"]["checked"]["entries"] == 1
     report = log.health(run_fsck=False)
     assert report["ok"] and report["fsck"] is None
     (tmp_path / "catalog.json").write_text('{"sharded": true}')
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="repro_torch.core.shard.ShardedDSLog.load"):
         tcat.DSLog.load(str(tmp_path), device="cpu")
+    assert not tcat.DSLog(root=str(tmp_path / "x"), device="cpu").health()["fsck"]["ok"]
 
 
 def test_register_operation_rolls_back_on_cycle():

@@ -357,3 +357,69 @@ def test_durable_store_on_card_equals_cpu(cuda_device, tmp_path):
     for fn in sorted(p.name for p in (tmp_path / "cpu").iterdir()):
         if fn not in ("telemetry.json", "autotune.json"):
             assert (tmp_path / "cpu" / fn).read_bytes() == (tmp_path / "cuda" / fn).read_bytes(), fn
+
+
+def _tree_bytes(root):
+    out = {}
+    for path in sorted(root.rglob("*")):
+        if path.is_file() and path.name not in ("telemetry.json", "autotune.json",
+                                                 "writer.lock"):
+            out[str(path.relative_to(root))] = path.read_bytes()
+    return out
+
+
+def test_sharded_store_on_card_equals_cpu(cuda_device, tmp_path):
+    """A 4-shard ShardedDSLog on the card: the CPU store's answers and
+    boxes_exchanged, the same manifest and blob bytes, and the range-join
+    kernels launched; a cold load answers alike."""
+    rels = [C.slice_lineage((64, 64), (0, 0), (64, 64), (2, 2)), C.identity_lineage((32, 32)),
+            C.transpose_lineage((32, 32), (1, 0)), C.flip_lineage((32, 32), 0),
+            C.reduce_lineage((32, 32), 1)]
+    names = [f"a{k}" for k in range(len(rels) + 1)]
+    cells = np.stack(np.unravel_index(np.arange(300), rels[0].in_shape), axis=1)
+    answers, exchanged = {}, {}
+    before = rj.range_join_mask.launches + rj.range_join_tile_masks.launches
+    for dev in ("cpu", cuda_device):
+        root = tmp_path / str(dev)
+        log = core.ShardedDSLog.open(str(root), 4, durability="manual", device=dev)
+        log.define_array("a0", rels[0].in_shape)
+        for k, rel in enumerate(rels):
+            log.define_array(names[k + 1], rel.out_shape)
+            log.register_operation(f"op{k}", [names[k]], [names[k + 1]],
+                                   capture=lambda r=rel: {(0, 0): r}, reuse=False)
+        got = [log.prov_query(names, cells, merge=m) for m in (True, False)]
+        got.append(log.prov_query(names[0], names[-1], cells))
+        got.append(log.prov_query(names[-1], names[0], np.array([[3], [17]])))
+        exchanged[str(dev)] = log.io_stats["boxes_exchanged"]
+        log.close()
+        back = core.ShardedDSLog.load(str(root), device=dev)
+        got.append(back.prov_query(names[-1], names[0], np.array([[5]])))
+        answers[str(dev)] = got
+    assert rj.range_join_mask.launches + rj.range_join_tile_masks.launches > before
+    assert exchanged["cuda"] == exchanged["cpu"] > 0
+    for g, w in zip(answers["cuda"], answers["cpu"]):
+        assert g.lo.tobytes() == w.lo.tobytes() and g.hi.tobytes() == w.hi.tobytes()
+    cpu, cuda = _tree_bytes(tmp_path / "cpu"), _tree_bytes(tmp_path / "cuda")
+    assert sorted(cpu) == sorted(cuda) and any(k.startswith("shard_") for k in cpu)
+    for fn in cpu:
+        assert cpu[fn] == cuda[fn], fn
+
+
+@pytest.mark.parametrize("case", ["exp", "matmul", "softmax", "roll", "tile"])
+def test_capture_jacobian_on_card_equals_cpu(cuda_device, case):
+    rng = np.random.default_rng(SEED)
+    f, shapes = {
+        "exp": (torch.exp, [(5, 4)]),
+        "matmul": (lambda a, b: a @ b, [(3, 4), (4, 6)]),
+        "softmax": (lambda x: torch.softmax(x, -1), [(3, 5)]),
+        "roll": (lambda x: torch.roll(x, 2, 0), [(6, 2)]),
+        "tile": (lambda x: torch.tile(x, (2, 2)), [(3, 2)]),
+    }[case]
+    args = [rng.random(s) + 0.5 for s in shapes]
+    if case == "exp":
+        args[0][0, 0] = -120.0  # underflows in float32: dropped on both
+    want = C.capture_jacobian(f, *args, device="cpu")
+    got = C.capture_jacobian(f, *args, device=cuda_device)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g == w
