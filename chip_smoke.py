@@ -58,13 +58,35 @@ Phases:
    ``ShardedDSLog.load`` whose one-shard query loads only that shard, the
    queries again, more ingest, a crash and its recovery; (d) the port's
    ``fsck`` on phase 7's stores and this one, and ``health(run_fsck=True)``;
-   (e) ``capture_jacobian`` on the card against ``oplib``'s lineage.
+   (e) ``capture_jacobian`` on the card against ``oplib``'s lineage;
+10. the LM serving path (``repro_torch.models``, ``launch.serve``,
+    ``data.pipeline``): qwen2-0.5b at its published widths (24 layers,
+    d_model 896, 14/2 heads of 64, d_ff 4,864, vocab 151,936 padded to
+    152,064; float32 weights from a seeded generator on the card, matmuls
+    at "highest" precision) serves 3 request batches of 8 prompts of 128
+    tokens from a ``TokenPipeline`` logging into a ``DSLog`` on the card,
+    32 greedy tokens each (``generate``, which times its prompt and its
+    decode loop);
+    (b) for the first batch the stepwise decode logits equal the full
+    ``forward(mode="dot")`` on the card (rtol = atol = 2e-3, the reference's
+    tolerance for this) and one prompt's first step on the card equals the
+    CPU's on the same weights (1e-3); every greedy token is the forward's
+    argmax up to that tolerance; (c) each step's shard cells queried back
+    through the batch to the corpus equal the shuffle's source rows, and
+    ``shard_slice`` is reused (``dim``) from the third step; (d) every
+    decoder architecture at ``reduced()`` gives the same greedy tokens on the
+    card and on the CPU; (e) init s, prefill ms, decode ms a token against
+    its memory bound, tokens/s, peak memory, and a profiled decode step's
+    device work and idle share (``torch.profiler``) are printed.
 
 Phases 3-5 are the port's main path, phase 7 the store's, phase 8's
 ``ops.run_boundaries`` calls the run-boundary kernel's and phase 9 the
 sharded store's: the launch counters are zeroed before each of those and
 read after it, and each path's kernels must have launched (in phase 9,
-``range_join_mask`` in step a and ``range_join_tile_masks`` in step b).  The JSON line reports phase 6's and phase 8's numbers
+``range_join_mask`` in step a and ``range_join_tile_masks`` in step b).
+Phase 10's counters are zeroed and read the same way and reported
+(``launches_serve_path``); the LM stack has no kernel of its own, so none
+is required to launch there.  The JSON line reports phase 6's and phase 8's numbers
 on the main paths' own operands.  Any failure raises and exits non-zero.
 Without CUDA, or without the port beside this script, it exits non-zero
 and prints no result.  The last three stdout lines are the card's name and
@@ -142,6 +164,20 @@ FIG89_SIZES = (256, 20_000, 128, 6, 40_000)
 ACCEL = ((32, 31), 20, 2, 330)
 # phase 9: shards of the sharded store (all on the one card)
 SHARDS = 4
+# phase 10: the serving path at qwen2-0.5b's published widths, float32
+# weights from a seeded generator on the card: SERVE_BATCHES request batches
+# of SERVE_BATCH prompts of SERVE_PROMPT tokens from the token pipeline,
+# each extended by SERVE_NEW greedy tokens
+SERVE_ARCH = "qwen2-0.5b"
+SERVE_BATCHES, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 3, 8, 128, 32
+SERVE_SEED = 0
+# stepwise decode against the full forward on the card: the reference's own
+# tolerance for that equivalence (tests/test_models.py:96-98); the card
+# against the CPU on the same weights (float32 sums in another order)
+DECODE_TOL = 2e-3
+CARD_CPU_TOL = 1e-3
+# phase 10d: each decoder at reduced(), on the card and the CPU
+SMALL_BATCH, SMALL_PROMPT, SMALL_NEW = 2, 16, 8
 
 
 def log(msg: str) -> None:
@@ -1445,6 +1481,255 @@ def phase_sharded(torch, core, C, oplib, fsck, wrappers, card, sizes, p3, accel,
 
 
 # --------------------------------------------------------------------------- #
+# Serving (phase 10)
+# --------------------------------------------------------------------------- #
+def timed_generate(torch, generate, cfg, model, prompts, new, laps):
+    """``generate`` on the card; (tokens, host ms up to the last token).
+    ``laps`` receives its prefill and decode loops' seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(cfg, model, prompts, new, device="cuda", timings=laps)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def allclose_excess(got, want, tol) -> float:
+    """Largest ``|got - want| - (tol + tol * |want|)``: at most 0 when the
+    two agree within rtol = atol = ``tol``."""
+    return float(((got - want).abs() - tol - tol * want.abs()).max())
+
+
+def greedy_gap(torch, forward, cfg, model, out, s0) -> float:
+    """The largest gap between the top full-forward logit and the logit of
+    the token greedy decoding picked there: 0 where decode and forward pick
+    the same token; a near-tie within the decode/forward tolerance may
+    pick either."""
+    logits, _ = forward(model, {"tokens": out[:, :-1]}, cfg, mode="dot")
+    logits = logits[:, s0 - 1 :]
+    picked = torch.take_along_dim(logits, out[:, s0:, None].long(), dim=-1)[..., 0]
+    return float((logits.amax(dim=-1) - picked).max())
+
+
+def serve_bound(cfg, model, batch, s0, new) -> tuple[float, str, int]:
+    """The least time of one decode step at this batch, averaged over the
+    ``new`` steps: every weight read once, the valid K/V rows read once,
+    the logits written once, over 3.35 TB/s; against 2 flops a weight a
+    token over the fp32 rate."""
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    mean_len = s0 + (new + 1) / 2
+    kv = 2 * cfg.n_layers * batch * mean_len * cfg.n_kv_heads * cfg.hd * 4
+    logits = batch * cfg.vocab_padded * 4
+    flops = 2 * sum(p.numel() for p in model.parameters()) * batch
+    b_ms, b_by = bound(weights + kv + logits, flops)
+    return b_ms, b_by, weights
+
+
+def phase_serve(torch, core, card) -> dict:
+    """The LM serving path (module doc, phase 10)."""
+    import copy
+
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decode_step, forward, init_caches, init_model
+
+    precision = torch.get_float32_matmul_precision()
+    log(f"  float32 matmul precision: {precision} "
+        f"(tf32 matmul {torch.backends.cuda.matmul.allow_tf32})")
+    if precision != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 10 runs float32 matmuls at full precision")
+    cfg = get_arch(SERVE_ARCH)
+    b, s0, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_model(cfg, SERVE_SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    b_ms, b_by, weight_bytes = serve_bound(cfg, model, b, s0, new)
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab} "
+        f"-> {cfg.vocab_padded}; {n_params} float32 parameters ({weight_bytes} B) "
+        f"made on the card in {init_s:.2f}s")
+
+    store = core.DSLog(device="cuda")
+    pipe = TokenPipeline(
+        PipelineConfig(vocab=cfg.vocab, seq_len=s0, global_batch=b, seed=SERVE_SEED),
+        dslog=store,
+    )
+    prefill_ms, decode_ms, total_ms, lineage_ms, checks = [], [], [], [], {}
+    for t in range(SERVE_BATCHES):
+        t0 = time.perf_counter()
+        batch = pipe.next_batch()
+        lineage_ms.append((time.perf_counter() - t0) * 1e3)
+        prompts = torch.from_numpy(batch["tokens"]).to("cuda")
+        if t == 0:
+            checks = serve_checks(torch, decode_step, forward, init_caches, copy, cfg,
+                                  model, prompts)
+        laps = {}
+        out, g_ms = timed_generate(torch, generate, cfg, model, prompts, new, laps)
+        p_ms = laps["prefill_s"] * 1e3
+        prefill_ms.append(p_ms)
+        decode_ms.append(laps["decode_s"] * 1e3 / new)
+        total_ms.append(g_ms)
+        if out.shape != (b, s0 + new) or not torch.equal(out[:, :s0], prompts.int()):
+            raise AssertionError(f"batch {t}: generate returned {tuple(out.shape)}")
+        if int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+            raise AssertionError(f"batch {t}: a generated id lies outside the vocab")
+        gap = greedy_gap(torch, forward, cfg, model, out, s0)
+        if gap > 2 * DECODE_TOL:
+            raise AssertionError(f"batch {t}: greedy token {gap} below the forward's top logit")
+        log(f"  batch {t}: lineage logged in {lineage_ms[-1]:.1f}ms, prefill {p_ms:.1f}ms, "
+            f"decode {decode_ms[-1]:.3f}ms a token, request {g_ms:.1f}ms, greedy gap to "
+            f"forward argmax {gap:.2e}")
+    prefill = float(np.median(prefill_ms))
+    decode = float(np.median(decode_ms))
+    profile = serve_profile(torch, decode_step, init_caches, cfg, model, prompts, decode)
+    lineage = serve_lineage(store, pipe, b, s0)
+    reduced = serve_reduced(torch, copy, ARCHS, generate, init_model)
+    res = {
+        "arch": cfg.name, "params": n_params, "weight_bytes": weight_bytes,
+        "init_s": init_s, "batch": b, "prompt": s0, "new_tokens": new,
+        "prefill_ms": prefill, "prefill_ms_per_token": prefill / s0,
+        "decode_ms_per_token": decode, "decode_bound_ms": b_ms, "decode_bound_by": b_by,
+        "decode_tokens_per_s": b * 1e3 / decode,
+        "request_tokens_per_s": b * new * 1e3 / float(np.median(total_ms)),
+        "lineage_log_ms": float(np.median(lineage_ms)),
+        "peak_cuda_mem": torch.cuda.max_memory_allocated(), **checks, **profile, **lineage,
+        "reduced_archs": reduced,
+    }
+    log(f"  {card}: prefill {prefill:.1f}ms for {b} x {s0} tokens "
+        f"({prefill / s0:.3f}ms a step), decode {decode:.3f}ms a token for the batch "
+        f"of {b} (bound {b_ms:.3f}ms by {b_by}), {res['decode_tokens_per_s']:.1f} decode "
+        f"tokens/s, {res['request_tokens_per_s']:.1f} generated tokens/s a request, "
+        f"peak {res['peak_cuda_mem']}B (medians of {SERVE_BATCHES} batches)")
+    return res
+
+
+def serve_profile(torch, decode_step, init_caches, cfg, model, prompts, decode_ms,
+                  steps=8) -> dict:
+    """``steps`` decode steps of the batch under ``torch.profiler``: the
+    device work they launch (kernels and copies) and its busy time, against
+    ``decode_ms``, the step's time without the profiler (which slows the
+    host several times over, not the device).  Where the profiler records
+    no device event, the device numbers are None ("not measured")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b = prompts.shape[0]
+    caches = init_caches(cfg, b, steps + 1, device="cuda")
+    decode_step(model, prompts[:, :1], caches, 0, cfg)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(steps):
+            decode_step(model, prompts[:, t : t + 1], caches, t, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = sum(1 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CPU and e.cpu_parent is None)
+    res = {"profile_wall_ms_per_step": wall_ms, "profile_host_ops_per_step": ops / steps,
+           "profile_device_events_per_step": None, "profile_device_busy_ms_per_step": None,
+           "profile_device_idle_share": None}
+    if device:
+        busy = sum(e.time_range.elapsed_us() for e in device) / 1e3 / steps
+        res.update({"profile_device_events_per_step": len(device) / steps,
+                    "profile_device_busy_ms_per_step": busy,
+                    "profile_device_idle_share": 1 - busy / decode_ms})
+        top = {}
+        for e in device:
+            top[e.name] = top.get(e.name, 0) + e.time_range.elapsed_us()
+        heavy = sorted(top.items(), key=lambda kv: -kv[1])[:5]
+        log("  profiled decode step, top device work (us a step): " + "; ".join(
+            f"{n[:60]} {us / steps:.1f}" for n, us in heavy))
+    log(f"  profiled decode step ({steps} steps): host {wall_ms:.3f}ms under the "
+        f"profiler ({decode_ms:.3f}ms without), "
+        f"{res['profile_host_ops_per_step']:.0f} top-level host ops, device events "
+        f"{res['profile_device_events_per_step']}, device busy "
+        f"{res['profile_device_busy_ms_per_step']}ms, idle share "
+        f"{res['profile_device_idle_share']}")
+    return res
+
+
+def serve_checks(torch, decode_step, forward, init_caches, copy, cfg, model, prompts) -> dict:
+    """Phase 10b: the stepwise decode logits against the full forward on
+    the card, and one prompt's first step on the card against the CPU."""
+    b, s0 = prompts.shape
+    caches = init_caches(cfg, b, s0 + 1, device="cuda")
+    steps = torch.stack([decode_step(model, prompts[:, t : t + 1], caches, t, cfg)[0][:, 0]
+                         for t in range(s0)], dim=1)
+    full, _ = forward(model, {"tokens": prompts}, cfg, mode="dot")
+    excess = allclose_excess(steps, full, DECODE_TOL)
+    decode_err = float((steps - full).abs().max())
+    del steps, full, caches
+    if excess > 0:
+        raise AssertionError(f"decode differs from forward by {decode_err} "
+                             f"(rtol = atol = {DECODE_TOL})")
+    cpu_model = copy.deepcopy(model).to("cpu")
+    tok = prompts[:1, :1]
+    want, _ = decode_step(cpu_model, tok.cpu(), init_caches(cfg, 1, 2, device="cpu"), 0, cfg)
+    got, _ = decode_step(model, tok, init_caches(cfg, 1, 2, device="cuda"), 0, cfg)
+    del cpu_model
+    cpu_err = float((got.cpu() - want).abs().max())
+    if allclose_excess(got.cpu(), want, CARD_CPU_TOL) > 0:
+        raise AssertionError(f"first-step logits: card vs CPU {cpu_err} "
+                             f"(rtol = atol = {CARD_CPU_TOL})")
+    log(f"  decode vs forward(mode='dot') on the card: max |diff| {decode_err:.3e} over "
+        f"{b} x {s0} steps (rtol = atol = {DECODE_TOL}); first step card vs CPU: max "
+        f"|diff| {cpu_err:.3e} (rtol = atol = {CARD_CPU_TOL})")
+    return {"decode_vs_forward_max_abs": decode_err, "card_vs_cpu_max_abs": cpu_err}
+
+
+def serve_lineage(store, pipe, b, s0) -> dict:
+    """Phase 10c: each step's shard cells back through the batch to the
+    corpus, against the numpy oracle; ``shard_slice`` reuse."""
+    before = dict(store.io_stats)
+    cells = np.array([[r, c] for r in range(b) for c in range(s0)])
+    routes = set()
+    t0 = time.perf_counter()
+    for t in range(pipe.step):
+        path = [f"shard_s{t}_k0", f"batch_s{t}", "corpus"]
+        res = store.prov_query(path, cells)
+        rows = pipe.source_rows_for_step(t)
+        if res.cell_set() != {(int(rows[r]), int(c)) for r, c in cells}:
+            raise AssertionError(f"step {t}: lineage differs from the shuffle's source rows")
+        routes.add(store.planner.plan_path(path).describe().split("\n", 1)[1])
+    query_ms = (time.perf_counter() - t0) * 1e3
+    reused = [op.reused for op in store.ops if op.op_name == "shard_slice"]
+    if reused[2:] != ["dim"] * (len(reused) - 2):
+        raise AssertionError(f"shard_slice reuse {reused}: not dim from the third step")
+    launches = store.io_stats["kernel_launches"] - before["kernel_launches"]
+    log(f"  lineage: {pipe.step} backward queries of {len(cells)} cells each equal the "
+        f"source rows in {query_ms:.1f}ms; shard_slice reuse {reused}; io_stats "
+        f"kernel_launches +{launches}; routes:")
+    for route in sorted(routes):
+        log("    " + route.replace("\n", "\n    "))
+    return {"lineage_query_ms": query_ms, "lineage_kernel_launches": launches,
+            "shard_slice_reuse": reused, "lineage_routes": sorted(routes)}
+
+
+def serve_reduced(torch, copy, archs, generate, init_model) -> list:
+    """Phase 10d: every decoder architecture at ``reduced()`` generates on
+    the card and on the CPU from the same weights; greedy tokens equal."""
+    done = []
+    rng = np.random.default_rng(SERVE_SEED)
+    for name, arch in archs.items():
+        cfg = arch.reduced()
+        if cfg.encoder_only:
+            continue
+        model = init_model(cfg, SERVE_SEED, device="cuda")
+        cpu_model = copy.deepcopy(model).to("cpu")
+        prompts = rng.integers(0, cfg.vocab, (SMALL_BATCH, SMALL_PROMPT)).astype(np.int32)
+        got = generate(cfg, model, prompts, SMALL_NEW, device="cuda").cpu()
+        want = generate(cfg, cpu_model, prompts, SMALL_NEW, device="cpu")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{cfg.name}: greedy tokens on the card differ from the CPU's")
+        done.append(cfg.name)
+    log(f"  reduced() decoders, card == CPU greedy tokens: {', '.join(done)}")
+    return done
+
+
+# --------------------------------------------------------------------------- #
 # Run boundaries (phase 8)
 # --------------------------------------------------------------------------- #
 def step1_operands(intervals, provrc, args):
@@ -1810,6 +2095,19 @@ def main(argv=None) -> int:
         ))
     log(f"shard-path launches: {shard_launches}")
 
+    # the serving path, phase 10: the LM stack has no kernel of its own; its
+    # pipeline's lineage queries may launch the joins, counted from zero here
+    for w in wrappers.values():
+        w.launches = 0
+
+    def serve():
+        with torch.no_grad():
+            return phase_serve(torch, core, card)
+
+    serving = run_phase(torch, wrappers, "10 serving", serve)
+    serve_launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"serve-path launches: {serve_launches}")
+
     kernels = []
     for name, rec in main_recs.items():
         kernels.append({
@@ -1831,10 +2129,12 @@ def main(argv=None) -> int:
             "shape": rec["shape"],
             **({"launches_store_path": store_launches[name],
                 "launches_shard_path": shard_launches[name]} if name in joins else {}),
+            "launches_serve_path": serve_launches[name],
             **({"ops_ms": rec["ops_ms"]} if "ops_ms" in rec else {}),
         })
     log(f"store: {json.dumps(store)}")
     log(f"sharded: {json.dumps(sharded)}")
+    log(f"serving: {json.dumps(serving)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

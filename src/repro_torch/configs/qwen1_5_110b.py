@@ -1,0 +1,18 @@
+"""qwen1.5-110b — dense 80L GQA(kv=8) with QKV bias [hf:Qwen/Qwen1.5-110B; hf]."""
+
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen1.5-110b",
+    family="dense",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=49152,
+    vocab=152064,
+    head_dim=128,
+    qkv_bias=True,
+    rope_theta=1e6,
+    source="hf:Qwen/Qwen1.5-0.5B family; hf",
+)

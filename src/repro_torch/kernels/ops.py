@@ -17,6 +17,7 @@ values to a packer raises.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -39,10 +40,11 @@ __all__ = [
 ]
 
 _I32 = np.iinfo(np.int32)
+_WIDE_UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
 
 
 def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
-    """The device a join runs on: ``cuda`` (raises without CUDA) or ``cpu``.
+    """The device an entry point runs on: ``cuda`` (raises without CUDA) or ``cpu``.
 
     There is no fallback: a caller that names CUDA on a machine without it
     gets an error, never the plain CPU path in its place.
@@ -51,8 +53,8 @@ def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to run the plain "
-                "PyTorch versions of the kernels"
+                "CUDA is not available; pass device='cpu' to run on the CPU "
+                "(the kernels' plain PyTorch versions)"
             )
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
@@ -120,7 +122,14 @@ def _pack_run_columns(
     extremes = []
     for c, col in enumerate((*group_cols, lo, hi)):
         t = torch.from_numpy(np.ascontiguousarray(col)).to(device)
-        if n:
+        if t.dtype in _WIDE_UNSIGNED:
+            # min/max are not defined on these types: widen to int64, where
+            # a uint64 of 2**63 or more reads negative (out of range too)
+            t = t.view(torch.int64) if t.dtype == torch.uint64 else t.to(torch.int64)
+            if n:
+                top = torch.where(t.min() < 0, math.inf, t.max().double())
+                extremes += [torch.zeros_like(top), top]
+        elif n:
             extremes += [t.min().double(), t.max().double()]
         packed[:, c] = t
     if extremes:

@@ -423,3 +423,49 @@ def test_capture_jacobian_on_card_equals_cpu(cuda_device, case):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g == w
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32, np.uint64, np.int16, np.bool_])
+def test_run_boundaries_column_dtypes_on_card_equal_cpu(cuda_device, dtype):
+    """Unsigned columns are widened on the card before the int32 range
+    check (torch defines no min/max on uint16/32/64 there either)."""
+    rng = np.random.default_rng(SEED)
+    top = 2 if dtype is np.bool_ else 60
+    g = np.sort(rng.integers(0, top, 2000)).astype(dtype)
+    lo = rng.integers(0, top, 2000).astype(dtype)
+    order = np.lexsort((lo, g))
+    g, lo = g[order], lo[order]
+    want = ops.run_boundaries([g], lo, lo, device="cpu")
+    np.testing.assert_array_equal(ops.run_boundaries([g], lo, lo, device=cuda_device), want)
+    if np.dtype(dtype).kind == "u" and np.dtype(dtype).itemsize >= 4:
+        bad = np.array([0, np.iinfo(dtype).max], dtype)
+        with pytest.raises(ValueError, match="int32"):
+            ops.run_boundaries([bad], bad, bad, device=cuda_device)
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-780m"])
+def test_decode_on_card_equals_cpu(cuda_device, name):
+    """The reduced model's decode on the card against the same weights on
+    the CPU: every step's logits within 1e-4 (float32 at "highest" matmul
+    precision; sums in another order), and the greedy tokens equal."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decode_step, init_caches, init_model
+
+    assert torch.get_float32_matmul_precision() == "highest"
+    cfg = get_arch(name).reduced()
+    model = init_model(cfg, 5, device=cuda_device)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+    caches = {d: init_caches(cfg, 2, 17, device=d) for d in ("cpu", cuda_device)}
+    for t in range(16):
+        tok = torch.from_numpy(tokens[:, t : t + 1])
+        want, _ = decode_step(cpu_model, tok, caches["cpu"], t, cfg)
+        got, _ = decode_step(model, tok.to(cuda_device), caches[cuda_device], t, cfg)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+    out = generate(cfg, model, tokens[:, :8], 8, device=cuda_device)
+    assert out.device.type == "cuda"
+    np.testing.assert_array_equal(out.cpu().numpy(),
+                                  generate(cfg, cpu_model, tokens[:, :8], 8, device="cpu").numpy())

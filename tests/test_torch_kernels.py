@@ -240,6 +240,29 @@ def test_segmented_empty_and_unknown_layout():
         tops.segmented_range_join_pairs(segs, device="cpu", layout="ragged")
 
 
+@pytest.mark.parametrize("layout", ["dense", "blockdiag", "auto"])
+@pytest.mark.parametrize("empty_side", ["q", "r"])
+def test_segmented_all_empty_side_follows_reference_blockdiag(layout, empty_side):
+    """Every segment with an empty q side (or every one an empty r side):
+    the reference's ``layout="dense"`` (and ``"auto"``, which picks dense
+    here) raises in ``range_join_mask`` on a 0-row operand
+    (``src/repro/kernels/ops.py:345``); its ``layout="blockdiag"`` returns
+    empty pair lists.  The port gives the blockdiag answer in every layout
+    (``ROADMAP.md`` §3, pinned)."""
+    z = np.zeros((0, 1), np.int64)
+    o = np.zeros((1, 1), np.int64)
+    segs = [(z, z, o, o), (z, z, o + 3, o + 5)]
+    if empty_side == "r":
+        segs = [(r_lo, r_hi, q_lo, q_hi) for q_lo, q_hi, r_lo, r_hi in segs]
+    want, _ = jops.segmented_range_join_pairs(segs, interpret=True, layout="blockdiag")
+    got, _ = tops.segmented_range_join_pairs(segs, device="cpu", layout=layout)
+    assert len(got) == len(want) == 2
+    for (gq, gr), (wq, wr) in zip(got, want):
+        np.testing.assert_array_equal(gq, wq)
+        np.testing.assert_array_equal(gr, wr)
+        assert len(gq) == len(gr) == 0
+
+
 def test_cuda_device_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is available: device='cuda' is valid")
@@ -348,6 +371,38 @@ def test_run_boundaries_device_pack_matches_reference(n, n_keys):
     if n:
         with pytest.raises(ValueError, match="int32"):
             tops._pack_run_columns(cols, lo + 2**31, hi, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32, np.int64, np.uint8,
+                                   np.uint16, np.uint32, np.uint64, np.bool_])
+def test_run_boundaries_every_integer_dtype_matches_reference(dtype):
+    """Columns of every numpy integer type and ``bool``: the port packs them
+    as the reference does (min/max are not defined on torch's uint16/32/64,
+    so those columns are widened before the int32 range check), and
+    out-of-range unsigned values raise in both packages."""
+    rng = np.random.default_rng(SEED)
+    top = 2 if dtype is np.bool_ else 100
+    g = np.sort(rng.integers(0, top, 400)).astype(dtype)
+    lo = rng.integers(0, top, 400).astype(dtype)
+    order = np.lexsort((lo, g))
+    g, lo = g[order], lo[order]
+    hi = lo if dtype is np.bool_ else (lo + rng.integers(0, 3, 400).astype(dtype))
+    for case in ([g], lo, hi), ([np.array([0, 0, 1], dtype)],
+                                np.array([0, 1, 1], dtype), np.array([0, 1, 1], dtype)):
+        want = jops.run_boundaries(*case, block_rows=256, interpret=True)
+        got = tops.run_boundaries(*case, block_rows=256, device="cpu")
+        np.testing.assert_array_equal(got, want)
+    if np.dtype(dtype).kind == "u" and np.dtype(dtype).itemsize >= 4:
+        info = np.iinfo(dtype)
+        for v in (info.max, I32_MAX + 1, info.max // 2 + 3):
+            bad = np.array([0, v], dtype)
+            with pytest.raises(ValueError, match="int32"):
+                jops.run_boundaries([bad], bad, bad, interpret=True)
+            with pytest.raises(ValueError, match="int32"):
+                tops.run_boundaries([bad], bad, bad, device="cpu")
+        ok = np.array([0, I32_MAX], dtype)
+        np.testing.assert_array_equal(tops.run_boundaries([ok], ok, ok, device="cpu"),
+                                      jops.run_boundaries([ok], ok, ok, interpret=True))
 
 
 def test_run_boundaries_hi_wrap_matches_reference():
