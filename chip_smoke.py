@@ -78,6 +78,28 @@ Phases:
     card and on the CPU; (e) init s, prefill ms, decode ms a token against
     its memory bound, tokens/s, peak memory, and a profiled decode step's
     device work and idle share (``torch.profiler``) are printed.
+11. the LM training path (``launch.steps``, ``launch.train``, ``optim``,
+    ``checkpoint``): (a) qwen2-0.5b at its published widths and depth
+    (``remat="full"``) takes 5 AdamW steps of ``make_train_step`` on
+    ``train_4k``'s 4,096-token sequences at a global batch of 2 (cut from
+    256: one card, float32), ``attn_plan``'s chunked attention at 512,
+    on batches from a ``TokenPipeline`` logging into a ``DSLog`` on the
+    card; step ms (step 1 apart), tokens/s, the step's flop bound and the
+    share of it reached, peak memory, and loss, ``grad_norm`` and ``lr``
+    each step (finite; ``lr`` equal to ``cosine_schedule``), then a sixth
+    step under ``torch.profiler`` (device busy time, idle share, the dense
+    products' share, the heaviest kernels); (b) the
+    published layer widths cut to 2 layers take 2 steps on the card and the
+    CPU from the same weights (loss, ``grad_norm`` and ``lr`` within rtol =
+    atol = 1e-3; the parameters within 1e-4 but for a share of at most 1e-6
+    of the entries, whose gradients cancel to near zero and which AdamW's
+    normalisation may move by up to 2 lr a step), and the gradient under remat ``full`` and
+    ``dots`` equals ``nothing``'s on the card (atol 1e-5); (c) ``train_loop``
+    at ``reduced()`` with checkpoints every 3 steps: a run resumed from step
+    2 gives the straight run's losses (atol 1e-6), and the last checkpoint
+    restores on the CPU to the trained parameters, bit for bit (save and
+    restore seconds printed); (d) three steps' shard cells queried back to
+    the corpus equal the pipeline's source rows.
 
 Phases 3-5 are the port's main path, phase 7 the store's, phase 8's
 ``ops.run_boundaries`` calls the run-boundary kernel's and phase 9 the
@@ -86,7 +108,9 @@ read after it, and each path's kernels must have launched (in phase 9,
 ``range_join_mask`` in step a and ``range_join_tile_masks`` in step b).
 Phase 10's counters are zeroed and read the same way and reported
 (``launches_serve_path``); the LM stack has no kernel of its own, so none
-is required to launch there.  The JSON line reports phase 6's and phase 8's numbers
+is required to launch there.  Phase 11's are reported as
+``launches_train_path``, and its lineage queries must launch
+``range_join_mask``.  The JSON line reports phase 6's and phase 8's numbers
 on the main paths' own operands.  Any failure raises and exits non-zero.
 Without CUDA, or without the port beside this script, it exits non-zero
 and prints no result.  The last three stdout lines are the card's name and
@@ -178,6 +202,24 @@ DECODE_TOL = 2e-3
 CARD_CPU_TOL = 1e-3
 # phase 10d: each decoder at reduced(), on the card and the CPU
 SMALL_BATCH, SMALL_PROMPT, SMALL_NEW = 2, 16, 8
+# phase 11: the training path at qwen2-0.5b's published widths and depth,
+# train_4k's sequence with its global batch cut from 256 to TRAIN_BATCH (one
+# card, float32), TRAIN_STEPS steps; lineage queried back for three steps
+TRAIN_ARCH, TRAIN_SHAPE, TRAIN_BATCH, TRAIN_STEPS, TRAIN_SEED = (
+    "qwen2-0.5b", "train_4k", 2, 5, 0)
+TRAIN_LINEAGE_STEPS = (0, 2, 4)
+# phase 11b: the published layer widths at TRAIN_CPU_LAYERS layers on the card
+# and the CPU (float32 sums in another order); remat's recomputation repeats
+# the same products on the card
+TRAIN_CPU_LAYERS, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS = 2, 256, 2
+TRAIN_CARD_CPU_TOL = 1e-3
+# parameters after the steps: all but PARAM_OUT_SHARE of the entries within
+# PARAM_TOL, every entry within AdamW's bound (see train_card_vs_cpu)
+PARAM_TOL, PARAM_OUT_SHARE = 1e-4, 1e-6
+REMAT_TOL = 1e-5
+# phase 11c: train_loop at reduced() resumed from a checkpoint on the same card
+RESUME_SEQ = 64
+RESUME_TOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -1585,7 +1627,7 @@ def phase_serve(torch, core, card) -> dict:
     prefill = float(np.median(prefill_ms))
     decode = float(np.median(decode_ms))
     profile = serve_profile(torch, decode_step, init_caches, cfg, model, prompts, decode)
-    lineage = serve_lineage(store, pipe, b, s0)
+    lineage = pipeline_lineage(store, pipe, b, s0)
     reduced = serve_reduced(torch, copy, ARCHS, generate, init_model)
     res = {
         "arch": cfg.name, "params": n_params, "weight_bytes": weight_bytes,
@@ -1680,14 +1722,16 @@ def serve_checks(torch, decode_step, forward, init_caches, copy, cfg, model, pro
     return {"decode_vs_forward_max_abs": decode_err, "card_vs_cpu_max_abs": cpu_err}
 
 
-def serve_lineage(store, pipe, b, s0) -> dict:
-    """Phase 10c: each step's shard cells back through the batch to the
-    corpus, against the numpy oracle; ``shard_slice`` reuse."""
+def pipeline_lineage(store, pipe, b, s0, steps=None) -> dict:
+    """Phases 10c and 11d: each step's (or each of ``steps``') shard cells
+    back through the batch to the corpus, against the numpy oracle;
+    ``shard_slice`` reuse."""
     before = dict(store.io_stats)
     cells = np.array([[r, c] for r in range(b) for c in range(s0)])
     routes = set()
+    steps = range(pipe.step) if steps is None else steps
     t0 = time.perf_counter()
-    for t in range(pipe.step):
+    for t in steps:
         path = [f"shard_s{t}_k0", f"batch_s{t}", "corpus"]
         res = store.prov_query(path, cells)
         rows = pipe.source_rows_for_step(t)
@@ -1699,7 +1743,7 @@ def serve_lineage(store, pipe, b, s0) -> dict:
     if reused[2:] != ["dim"] * (len(reused) - 2):
         raise AssertionError(f"shard_slice reuse {reused}: not dim from the third step")
     launches = store.io_stats["kernel_launches"] - before["kernel_launches"]
-    log(f"  lineage: {pipe.step} backward queries of {len(cells)} cells each equal the "
+    log(f"  lineage: {len(steps)} backward queries of {len(cells)} cells each equal the "
         f"source rows in {query_ms:.1f}ms; shard_slice reuse {reused}; io_stats "
         f"kernel_launches +{launches}; routes:")
     for route in sorted(routes):
@@ -1727,6 +1771,259 @@ def serve_reduced(torch, copy, archs, generate, init_model) -> list:
         done.append(cfg.name)
     log(f"  reduced() decoders, card == CPU greedy tokens: {', '.join(done)}")
     return done
+
+
+# --------------------------------------------------------------------------- #
+# The training path (phase 11)
+# --------------------------------------------------------------------------- #
+def train_step_flops(cfg, model, b, s, plan) -> float:
+    """The train step's flops from the code's shapes: 6 a weight a token
+    (forward 2, backward 4) over the layers' weight matrices and the head,
+    attention's two products over every key position the path visits
+    (``chunked`` pads keys to a multiple of ``chunk`` and masks, it skips
+    none), 3 times (forward, backward 2x), and remat's second forward of
+    each layer (``full``: its products and attention; ``dots``: attention
+    only, the products are saved).  Norms, softmax and other elementwise
+    work are left out, so this is a lower bound."""
+    t = b * s
+    n_layer = sum(p.numel() for n, p in model.named_parameters()
+                  if n.startswith("layers.") and p.dim() == 2)
+    n_head = cfg.vocab_padded * cfg.d_model
+    s_kv = s if plan["mode"] == "dot" else -(-s // plan["chunk"]) * plan["chunk"]
+    attn = 0 if cfg.attention_free else (
+        2 * 2 * b * cfg.n_heads * s * s_kv * cfg.hd * cfg.n_layers)
+    remat = {"nothing": 0, "dots": attn}.get(cfg.remat, 2 * n_layer * t + attn)
+    return 3 * (2 * (n_layer + n_head) * t + attn) + remat
+
+
+def phase_train(torch, core, card, workdir) -> dict:
+    """The LM training path (module doc, phase 11)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.steps import attn_plan, make_train_step
+    from repro_torch.models import init_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, cosine_schedule
+
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 11 runs float32 matmuls at full precision")
+    cfg = get_arch(TRAIN_ARCH)
+    shape = dataclasses.replace(SHAPES[TRAIN_SHAPE], global_batch=TRAIN_BATCH)
+    b, s = shape.global_batch, shape.seq_len
+    plan = attn_plan(cfg, shape, dp_total=1)
+    if (plan["mode"], plan["chunk"], plan["n_micro"]) != ("chunked", 512, 1) or s % 512:
+        raise AssertionError(f"attn_plan for {shape}: {plan}")
+    opt_cfg = AdamWConfig()
+    model = init_model(cfg, TRAIN_SEED, device="cuda")
+    opt = adamw_init(model)
+    flops = train_step_flops(cfg, model, b, s, plan)
+    b_ms, b_by = bound(0, flops)
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} x {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}, remat "
+        f"{cfg.remat}; {shape.name} cut to batch {b} x {s} tokens; plan {plan}; step "
+        f"{flops:.4e} flops, bound {b_ms:.1f}ms ({b_by})")
+    store = core.DSLog(device="cuda")
+    pipe = TokenPipeline(PipelineConfig(cfg.vocab, s, b, TRAIN_SEED), dslog=store)
+    step_fn = make_train_step(cfg, opt_cfg, plan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for k in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        tokens = torch.from_numpy(pipe.next_batch()["tokens"]).to("cuda")
+        log_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = step_fn(model, opt, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = {"step": k, "ms": ms, "lineage_log_ms": log_ms,
+               **{key: float(m[key]) for key in ("loss", "ce", "aux", "grad_norm", "lr")}}
+        want_lr = cosine_schedule(torch.tensor(float(k + 1), device="cuda"), opt_cfg)
+        if not (np.isfinite(rec["loss"]) and np.isfinite(rec["grad_norm"])):
+            raise AssertionError(f"train step {k}: loss {rec['loss']}, grad_norm "
+                                 f"{rec['grad_norm']}")
+        if not torch.equal(m["lr"], want_lr) or int(opt["step"]) != k + 1:
+            raise AssertionError(f"train step {k}: lr {rec['lr']} != cosine_schedule "
+                                 f"{float(want_lr)}, step {int(opt['step'])}")
+        steps.append(rec)
+        log(f"  step {k}: {ms:.1f}ms loss {rec['loss']:.6f} grad_norm {rec['grad_norm']:.6f} "
+            f"lr {rec['lr']:.3e} (lineage logged in {log_ms:.1f}ms)")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median([r["ms"] for r in steps[1:]]))
+    res = {"arch": cfg.name, "params": sum(p.numel() for p in model.parameters()),
+           "batch": b, "seq": s, "plan": plan, "remat": cfg.remat, "step_flops": flops,
+           "first_step_ms": steps[0]["ms"], "step_ms": step_ms,
+           "tokens_per_s": b * s * 1e3 / step_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "bound_share": b_ms / step_ms, "peak_cuda_mem": peak, "steps": steps}
+    log(f"  {card}: train step {step_ms:.1f}ms (median of steps 2-{TRAIN_STEPS}; step 1 "
+        f"{steps[0]['ms']:.1f}ms), {res['tokens_per_s']:.1f} tokens/s, bound {b_ms:.1f}ms "
+        f"({b_by}, share {res['bound_share']:.3f}), peak {peak}B")
+    tokens = torch.from_numpy(pipe.global_batch_tokens(TRAIN_STEPS)).to("cuda")
+    res.update(train_profile(torch, step_fn, model, opt, {"tokens": tokens}, step_ms))
+    del model, opt, step_fn
+    torch.cuda.empty_cache()
+    res["lineage"] = pipeline_lineage(store, pipe, b, s, steps=TRAIN_LINEAGE_STEPS)
+    res.update(train_card_vs_cpu(torch, copy, dataclasses, cfg))
+    res.update(train_resume(torch, cfg, workdir))
+    return res
+
+
+def train_profile(torch, step_fn, model, opt, batch, step_ms) -> dict:
+    """One more train step under ``torch.profiler``: its device work
+    (kernels and copies), busy time against ``step_ms`` (the step without
+    the profiler), the dense products' share (cuBLAS/CUTLASS GEMM kernels)
+    and the heaviest kernels.  Where the profiler records no device event,
+    the device numbers are None ("not measured")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(model, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    res = {"profile_wall_ms": wall_ms, "profile_device_events": len(device),
+           "profile_device_busy_ms": None, "profile_device_idle_share": None,
+           "profile_gemm_ms": None}
+    if device:
+        by_name: dict = {}
+        for e in device:
+            by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us() / 1e3
+        busy = sum(by_name.values())
+        gemm = sum(ms for n, ms in by_name.items()
+                   if re.search(r"gemm|xmma|cutlass", n, re.IGNORECASE))
+        res.update({"profile_device_busy_ms": busy, "profile_device_idle_share": 1 - busy / step_ms,
+                    "profile_gemm_ms": gemm})
+        heavy = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        log("  profiled train step, top device work (ms): " + "; ".join(
+            f"{n[:60]} {ms:.1f}" for n, ms in heavy))
+    log(f"  profiled train step: host {wall_ms:.1f}ms under the profiler ({step_ms:.1f}ms "
+        f"without), {len(device)} device events, device busy {res['profile_device_busy_ms']}ms, "
+        f"dense products {res['profile_gemm_ms']}ms, idle share "
+        f"{res['profile_device_idle_share']}")
+    return res
+
+
+def train_card_vs_cpu(torch, copy, dataclasses, cfg_full) -> dict:
+    """Phase 11b: qwen2-0.5b's published layer widths cut to a few layers
+    trains on the card and on the CPU from the same weights; then the
+    gradient under each remat policy on the card."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import attn_plan, make_train_step
+    from repro_torch.models import init_model, lm_loss
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(cfg_full, n_layers=TRAIN_CPU_LAYERS)
+    shape = ShapeConfig("card_vs_cpu", TRAIN_CPU_SEQ, TRAIN_BATCH, "train")
+    plan = attn_plan(cfg, shape, dp_total=1)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+    model = init_model(cfg, TRAIN_SEED, device="cuda")
+    cpu_model = copy.deepcopy(model).to("cpu")
+    rng = np.random.default_rng(TRAIN_SEED)
+    batches = [rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_CPU_SEQ)).astype(np.int32)
+               for _ in range(TRAIN_CPU_STEPS)]
+    metrics = {}
+    for where, m in (("card", model), ("cpu", cpu_model)):
+        opt, step_fn = adamw_init(m), make_train_step(cfg, opt_cfg, plan)
+        metrics[where] = []
+        for tokens in batches:
+            batch = {"tokens": torch.from_numpy(tokens).to(next(m.parameters()).device)}
+            m, opt, out = step_fn(m, opt, batch)
+            metrics[where].append([float(out[k]) for k in ("loss", "grad_norm", "lr")])
+    got, want = np.array(metrics["card"]), np.array(metrics["cpu"])
+    metric_err = float(np.abs(got - want).max())
+    if np.any(np.abs(got - want) > TRAIN_CARD_CPU_TOL * (1 + np.abs(want))):
+        raise AssertionError(f"train steps card vs CPU: loss/grad_norm/lr differ by "
+                             f"{metric_err} (rtol = atol = {TRAIN_CARD_CPU_TOL})")
+    # AdamW moves each entry by about lr a step whatever its gradient's size:
+    # where a gradient cancels to near zero, float32 rounding on either device
+    # decides its sign, so a few entries may differ by up to 2 lr a step
+    adamw_bound = PARAM_TOL + 2 * float(got[:, 2].sum())
+    param_err, worst, n_out, n_all = 0.0, "", 0, 0
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        diff = (p.detach().cpu() - q.detach()).abs()
+        n_out += int((diff > PARAM_TOL * (1 + q.detach().abs())).sum())
+        n_all += diff.numel()
+        if float(diff.max()) > param_err:
+            param_err, worst = float(diff.max()), name
+    if param_err > adamw_bound or n_out > PARAM_OUT_SHARE * n_all:
+        raise AssertionError(f"train steps card vs CPU: parameters differ by {param_err} "
+                             f"({worst}); {n_out} of {n_all} entries beyond rtol = atol = "
+                             f"{PARAM_TOL}")
+    log(f"  card vs CPU, {cfg.n_layers} layers x {TRAIN_BATCH} x {TRAIN_CPU_SEQ} tokens, "
+        f"{TRAIN_CPU_STEPS} steps: loss/grad_norm/lr max |diff| {metric_err:.3e} (rtol = atol "
+        f"= {TRAIN_CARD_CPU_TOL}); parameters max |diff| {param_err:.3e} in {worst} (at most "
+        f"{adamw_bound:.3e}), {n_out} of {n_all} entries beyond rtol = atol = {PARAM_TOL} (at "
+        f"most a share of {PARAM_OUT_SHARE}); card {metrics['card']}")
+    del cpu_model
+
+    batch = {"tokens": torch.from_numpy(batches[0]).to("cuda")}
+    params = list(model.parameters())
+    grads = {}
+    for remat in ("nothing", "full", "dots"):
+        total, _ = lm_loss(model, batch, dataclasses.replace(cfg, remat=remat),
+                           mode=plan["mode"], chunk=plan["chunk"])
+        grads[remat] = torch.autograd.grad(total, params)
+    remat_err = {}
+    for remat in ("full", "dots"):
+        remat_err[remat] = max(float((g - w).abs().max())
+                               for g, w in zip(grads[remat], grads["nothing"]))
+        if remat_err[remat] > REMAT_TOL:
+            raise AssertionError(f"remat {remat}: gradient differs by {remat_err[remat]} on "
+                                 f"the card (atol {REMAT_TOL})")
+    log(f"  remat on the card: gradient max |diff| against 'nothing': full "
+        f"{remat_err['full']:.3e}, dots {remat_err['dots']:.3e} (atol {REMAT_TOL})")
+    return {"card_vs_cpu_metrics_max_abs": metric_err, "card_vs_cpu_params_max_abs": param_err,
+            "card_vs_cpu_params_beyond_tol": n_out, "remat_grad_max_abs": remat_err}
+
+
+def train_resume(torch, cfg_full, workdir) -> dict:
+    """Phase 11c: ``train_loop`` at ``reduced()`` with checkpoints on the
+    card: a run resumed from step 2 gives the straight run's losses, and
+    the last checkpoint restores on the CPU to the trained parameters."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.convert import tree_values
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = cfg_full.reduced()
+    shape = ShapeConfig("resume", RESUME_SEQ, TRAIN_BATCH, "train")
+    kw = dict(ckpt_every=3, log_every=100, device="cuda",
+              opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6))
+    straight_dir, resumed_dir = os.path.join(workdir, "straight"), os.path.join(workdir, "resumed")
+    model, straight = train_loop(cfg, shape, steps=6, ckpt_dir=straight_dir, **kw)
+    _, first = train_loop(cfg, shape, steps=3, ckpt_dir=resumed_dir, **kw)
+    _, rest = train_loop(cfg, shape, steps=6, ckpt_dir=resumed_dir, **kw)
+    resume_err = float(np.abs(np.array(first + rest) - np.array(straight)).max())
+    if len(rest) != 3 or resume_err > RESUME_TOL:
+        raise AssertionError(f"resumed losses {first + rest} != straight {straight}")
+    mgr = CheckpointManager(straight_dir)
+    t0 = time.perf_counter()
+    tree, extra = mgr.restore(device="cpu")
+    restore_s = time.perf_counter() - t0
+    for (name, p), got in zip(model.named_parameters(), tree_values(model, tree["params"])):
+        if got.device.type != "cpu" or not torch.equal(got, p.detach().cpu()):
+            raise AssertionError(f"checkpoint leaf of {name} differs on the CPU")
+    on_card, _ = mgr.restore(device="cuda")
+    if not torch.equal(on_card["opt"]["m"]["embed"]["table"].cpu(),
+                       tree["opt"]["m"]["embed"]["table"]) or extra["step"] != 5:
+        raise AssertionError("the checkpoint restores otherwise on the card")
+    t0 = time.perf_counter()
+    CheckpointManager(os.path.join(workdir, "resave")).save(5, tree, extra=extra)
+    save_s = time.perf_counter() - t0
+    with open(os.path.join(straight_dir, "step_00000005", "manifest.json")) as f:
+        codec = json.load(f)["codec"]
+    log(f"  train_loop {cfg.name}: straight {['%.6f' % x for x in straight]}, resumed from "
+        f"step 2 max |diff| {resume_err:.3e} (atol {RESUME_TOL}); checkpoint of "
+        f"{sum(p.numel() for p in model.parameters())} parameters + moments: save "
+        f"{save_s:.3f}s, restore {restore_s:.3f}s (codec {codec})")
+    return {"resume_losses": straight, "resume_max_abs": resume_err,
+            "ckpt_save_s": save_s, "ckpt_restore_s": restore_s}
 
 
 # --------------------------------------------------------------------------- #
@@ -2108,6 +2405,16 @@ def main(argv=None) -> int:
     serve_launches = {k: w.launches for k, w in wrappers.items()}
     log(f"serve-path launches: {serve_launches}")
 
+    # the training path, phase 11: the LM stack has no kernel of its own;
+    # the pipeline's lineage queries (11d) must launch range_join_mask
+    for w in wrappers.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory(prefix="smoke_train_", dir=build_dir) as workdir:
+        training, _ = main_path(wrappers, ("range_join_mask",), lambda: run_phase(
+            torch, wrappers, "11 training", lambda: phase_train(torch, core, card, workdir)))
+    train_launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"train-path launches: {train_launches}")
+
     kernels = []
     for name, rec in main_recs.items():
         kernels.append({
@@ -2130,11 +2437,13 @@ def main(argv=None) -> int:
             **({"launches_store_path": store_launches[name],
                 "launches_shard_path": shard_launches[name]} if name in joins else {}),
             "launches_serve_path": serve_launches[name],
+            "launches_train_path": train_launches[name],
             **({"ops_ms": rec["ops_ms"]} if "ops_ms" in rec else {}),
         })
     log(f"store: {json.dumps(store)}")
     log(f"sharded: {json.dumps(sharded)}")
     log(f"serving: {json.dumps(serving)}")
+    log(f"training: {json.dumps(training)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

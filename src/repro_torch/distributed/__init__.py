@@ -1,5 +1,7 @@
-"""Distribution helpers of the port.  Only ``sharding.hint`` so far: the
-meshes, parameter shardings and collectives of ``repro.distributed`` come
-with the port's distributed slice."""
+"""Distribution helpers of the port: ``sharding.hint`` and
+``elastic.StepWatchdog`` so far.  The meshes, parameter shardings,
+collectives and ``reshard_tree`` of ``repro.distributed`` come with the
+port's distributed slice."""
 
+from .elastic import StepWatchdog  # noqa: F401
 from .sharding import hint  # noqa: F401

@@ -5,14 +5,30 @@ weights on a leading axis and runs one ``lax.scan``; here the stack is an
 ``nn.ModuleList`` run by a Python loop, and each layer's attention window
 is a Python int (``layer_windows``).  The decode caches keep the
 reference's layout, one tensor per kind with a leading layer axis, and are
-updated in place.  ``cfg.remat`` (activation checkpointing) does nothing
-without a gradient and waits for the training slice.
+updated in place.
+
+Remat: ``cfg.remat`` in {nothing, dots, full} wraps each layer's
+``layer_apply`` in ``torch.utils.checkpoint.checkpoint`` (non-reentrant),
+the reference's ``_remat_wrap`` of its scan body: ``full`` saves only the
+layer's input and recomputes the layer in the backward pass; ``dots``
+also saves the outputs of the weight products (``aten.mm``/``addmm``, to
+which ``x @ w`` flattens) and recomputes the rest, the torch form of JAX's
+``checkpoint_dots_with_no_batch_dims`` (attention's batched products are
+``bmm`` and are recomputed).  Remat applies only while autograd records,
+so serving runs the layers as they are.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ArchConfig
 from ..distributed.sharding import hint
@@ -123,11 +139,33 @@ def layer_windows(cfg: ArchConfig) -> list[int]:
     return [cfg.window if kind == "local" else GLOBAL_WINDOW for kind in cfg.layer_kinds()]
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def _remat_wrap(fn, remat: str):
+    if remat == "nothing" or not torch.is_grad_enabled():
+        return fn
+    if remat == "dots":
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=_dots_contexts)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def stack_apply(layers: nn.ModuleList, x, cfg: ArchConfig, *, mode="auto", chunk=512):
-    """Run all layers; returns (hidden, total_aux_loss)."""
+    """Run all layers (each under ``cfg.remat``); returns (hidden,
+    total_aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    body = _remat_wrap(layer_apply, cfg.remat)
     for lp, win in zip(layers, layer_windows(cfg)):
-        x, a = layer_apply(lp, x, cfg, win, mode=mode, chunk=chunk)
+        x, a = body(lp, x, cfg, win, mode=mode, chunk=chunk)
         x = hint(x, "hidden")
         aux = aux + a
     return x, aux

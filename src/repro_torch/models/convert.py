@@ -1,12 +1,14 @@
-"""Carry the reference's weights across: a ``repro.models`` value tree, as
-numpy arrays, into the port's modules.
+"""Carry weights between the packages: a ``repro.models`` value tree, as
+numpy arrays, into the port's modules (``copy_tree``/``from_reference``),
+and the port's parameters back into that tree (``to_reference``).
 
 Each parameter of the port's module tree is named by the reference's
 tree path, with the layer index where the reference stacks layers on a
 leading ``L`` axis: ``layers.3.attn.q.w`` is
 ``tree["layers"]["attn"]["q"]["w"][3]``.  Both keep ``[d_in, d_out]``
 weights, so every leaf is a copy.  The tests use this so that both
-packages compute with the same weights.
+packages compute with the same weights; the trainer's checkpoints use
+``to_reference``'s layout, so either package restores the other's.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from ..kernels.ops import resolve_device
 from .layers import Init
 from .model import LM
 
-__all__ = ["copy_tree", "from_reference"]
+__all__ = ["copy_tree", "from_reference", "to_reference", "tree_values"]
 
 
 def _leaves(tree, prefix=()):
@@ -31,32 +33,83 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
-def copy_tree(module: nn.Module, tree: dict) -> nn.Module:
-    """Copy ``tree``'s leaves into ``module``'s parameters and return it.
+def _split_name(name: str):
+    """(tree path, layer indices) of a parameter name."""
+    parts = name.split(".")
+    return (tuple(p for p in parts if not p.isdigit()),
+            tuple(int(p) for p in parts if p.isdigit()))
+
+
+def tree_values(module: nn.Module, tree: dict) -> list:
+    """The value in ``tree`` (numpy arrays or tensors) of each of
+    ``module``'s parameters, as tensors in ``module.parameters()`` order.
     A numeric part of a parameter's name indexes the leading axis of the
     leaf named by the other parts.  Every leaf must find its parameter and
     shape, and every parameter its leaf."""
     leaves = dict(_leaves(tree))
     used = set()
-    with torch.no_grad():
-        for name, param in module.named_parameters():
-            parts = name.split(".")
-            path = tuple(p for p in parts if not p.isdigit())
-            if path not in leaves:
-                raise KeyError(f"the reference tree has no leaf {'/'.join(path)}")
-            value = np.asarray(leaves[path])
-            for index in (int(p) for p in parts if p.isdigit()):
-                value = value[index]
-            if tuple(value.shape) != tuple(param.shape):
-                raise ValueError(
-                    f"{name}: reference shape {value.shape}, port shape {tuple(param.shape)}"
-                )
-            param.copy_(torch.from_numpy(np.array(value)))
-            used.add(path)
+    values = []
+    for name, param in module.named_parameters():
+        path, indices = _split_name(name)
+        if path not in leaves:
+            raise KeyError(f"the reference tree has no leaf {'/'.join(path)}")
+        value = leaves[path]
+        if not isinstance(value, torch.Tensor):
+            value = np.asarray(value)
+        for index in indices:
+            value = value[index]
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(
+                f"{name}: reference shape {value.shape}, port shape {tuple(param.shape)}"
+            )
+        if not isinstance(value, torch.Tensor):
+            value = torch.from_numpy(np.array(value))
+        values.append(value)
+        used.add(path)
     missing = set(leaves) - used
     if missing:
         raise KeyError(f"reference leaves with no port parameter: {sorted(missing)}")
+    return values
+
+
+def copy_tree(module: nn.Module, tree: dict) -> nn.Module:
+    """Copy ``tree``'s leaves into ``module``'s parameters (matched as
+    ``tree_values`` matches them) and return it."""
+    with torch.no_grad():
+        for param, value in zip(module.parameters(), tree_values(module, tree)):
+            param.copy_(value)
     return module
+
+
+def to_reference(module: nn.Module, values=None) -> dict:
+    """The reference's nested numpy tree of ``module``'s parameters, or of
+    ``values`` (one tensor a parameter, in ``module.parameters()`` order,
+    such as AdamW's ``m``): layer leaves stacked on a leading ``L`` axis.
+    ``copy_tree(module, to_reference(module))`` gives back the same bits.
+    Numpy has no bfloat16, so a bfloat16 tensor raises ``TypeError``."""
+    named = list(module.named_parameters())
+    if values is None:
+        values = [p for _, p in named]
+    if len(values) != len(named):
+        raise ValueError(f"{len(values)} values for {len(named)} parameters")
+    stacks: dict = {}
+    for (name, _), value in zip(named, values):
+        path, indices = _split_name(name)
+        if value.dtype == torch.bfloat16:
+            raise TypeError(f"{name}: numpy has no bfloat16")
+        # a copy: the tree must not change when the parameters are next updated
+        stacks.setdefault(path, []).append((indices, value.detach().to("cpu", copy=True).numpy()))
+    tree: dict = {}
+    for path, items in stacks.items():
+        if items[0][0]:
+            leaf = np.stack([a for _, a in sorted(items, key=lambda it: it[0])])
+        else:
+            leaf = items[0][1]
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
 
 
 def from_reference(cfg: ArchConfig, tree: dict, *, device="cuda", dtype=torch.float32) -> LM:

@@ -10,8 +10,9 @@ reference's:
 * audio encoder: ``{"frames": [B, T, F], "labels": [B, T] int}``
                  (conv feature-extractor stub; encoder-only, CE per frame).
 
-``forward`` and ``lm_loss`` stay differentiable (the training slice takes
-their gradient); ``prefill`` and ``decode_step`` run without autograd.
+``forward`` and ``lm_loss`` are differentiable (``launch.steps``'s train
+step takes their gradient, with ``cfg.remat`` applied layer by layer);
+``prefill`` and ``decode_step`` run without autograd.
 """
 
 from __future__ import annotations

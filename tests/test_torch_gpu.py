@@ -469,3 +469,97 @@ def test_decode_on_card_equals_cpu(cuda_device, name):
     assert out.device.type == "cuda"
     np.testing.assert_array_equal(out.cpu().numpy(),
                                   generate(cfg, cpu_model, tokens[:, :8], 8, device="cpu").numpy())
+
+
+# dense, MoE (einsum dispatch; sorted dispatch, whose scatter-add is
+# index_put_(accumulate=True) with float atomics on the card), SSM, hybrid
+_TRAIN_ARCHS = [("qwen2-0.5b", None), ("qwen2-moe-a2.7b", "einsum"), ("grok-1-314b", "sorted"),
+                ("mamba2-780m", None), ("hymba-1.5b", None)]
+
+
+@pytest.mark.parametrize("name,dispatch", _TRAIN_ARCHS)
+def test_train_steps_on_card_equal_cpu(cuda_device, name, dispatch):
+    """Three AdamW steps of the reduced model on the card against the same
+    weights and batches on the CPU: loss, ce, aux, grad_norm and lr each
+    step and every parameter after it within rtol = atol = 1e-4 (float32 at
+    "highest" matmul precision; sums in another order)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.steps import attn_plan, make_train_step
+    from repro_torch.models import init_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    cfg = get_arch(name).reduced()
+    if dispatch is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=dispatch))
+    plan = attn_plan(cfg, ShapeConfig("t", 16, 2, "train"), dp_total=1)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6)
+    model = init_model(cfg, 7, device=cuda_device)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    opts = {"card": adamw_init(model), "cpu": adamw_init(cpu_model)}
+    step = make_train_step(cfg, opt_cfg, plan)
+    rng = np.random.default_rng(SEED)
+    for _ in range(3):
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32))
+        model, opts["card"], got = step(model, opts["card"], {"tokens": tokens.to(cuda_device)})
+        cpu_model, opts["cpu"], want = step(cpu_model, opts["cpu"], {"tokens": tokens})
+        for key in ("loss", "ce", "aux", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(got[key]), float(want[key]), rtol=1e-4, atol=1e-4,
+                                       err_msg=key)
+        for (n, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+            np.testing.assert_allclose(p.detach().cpu().numpy(), q.detach().numpy(),
+                                       rtol=1e-4, atol=1e-4, err_msg=n)
+    assert opts["card"]["step"].device.type == "cuda" and int(opts["card"]["step"]) == 3
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_on_card_keeps_the_gradient(cuda_device, remat):
+    """Recomputation repeats the same products on the card: gradients
+    within 1e-5 of remat "nothing"'s."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_model, lm_loss
+
+    cfg = get_arch("hymba-1.5b").reduced()
+    model = init_model(cfg, 3, device=cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab, (2, 16)))
+    batch = {"tokens": tokens.to(cuda_device)}
+    params = list(model.parameters())
+    grads = {}
+    for r in ("nothing", remat):
+        total, _ = lm_loss(model, batch, dataclasses.replace(cfg, remat=r))
+        grads[r] = torch.autograd.grad(total, params)
+    for g, w in zip(grads[remat], grads["nothing"]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_train_loop_on_card_resumes_and_restores_on_cpu(cuda_device, tmp_path):
+    """``train_loop`` on the card: a run resumed from its step-2 checkpoint
+    gives the straight run's losses (within 1e-6), and the checkpoint's
+    tensors, bf16 included, restore on the CPU and on the card alike."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = get_arch("qwen2-0.5b").reduced()
+    shape = ShapeConfig("t", 32, 2, "train")
+    kw = dict(ckpt_every=3, log_every=100, device=cuda_device,
+              opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6))
+    _, straight = train_loop(cfg, shape, steps=6, ckpt_dir=str(tmp_path / "a"), **kw)
+    _, first = train_loop(cfg, shape, steps=3, ckpt_dir=str(tmp_path / "b"), **kw)
+    _, rest = train_loop(cfg, shape, steps=6, ckpt_dir=str(tmp_path / "b"), **kw)
+    np.testing.assert_allclose(first + rest, straight, rtol=0, atol=1e-6)
+    mgr = CheckpointManager(str(tmp_path / "c"))
+    tree = {"w": torch.randn(3, 4, device=cuda_device),
+            "h": torch.randn(5, device=cuda_device).to(torch.bfloat16),
+            "step": torch.tensor(4, dtype=torch.int32, device=cuda_device)}
+    mgr.save(4, tree, extra={"step": 4})
+    on_cpu, _ = mgr.restore(device="cpu")
+    on_card, _ = mgr.restore(device=cuda_device)
+    for k, v in tree.items():
+        assert on_card[k].device.type == "cuda" and torch.equal(on_card[k], v)
+        assert on_cpu[k].device.type == "cpu" and torch.equal(on_cpu[k], v.cpu())
