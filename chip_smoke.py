@@ -100,6 +100,23 @@ Phases:
     restores on the CPU to the trained parameters, bit for bit (save and
     restore seconds printed); (d) three steps' shard cells queried back to
     the corpus equal the pipeline's source rows.
+12. the LM stack's distributed path (``launch.mesh``, ``distributed``,
+    data-parallel ``launch.train``): (a) the script starts itself twice
+    (``--dp-rank``) as two ranks of a ``gloo`` group sharing the card
+    (NCCL takes one rank a card; gloo reduces CUDA tensors through the
+    host), each running ``train_loop`` on ``cuda:0`` at qwen2-0.5b's
+    published widths and depth for 3 steps of phase 11's batches, one
+    sequence a rank: loss, ``grad_norm`` and ``lr`` within 1e-4 of phase
+    11's first 3 steps, rank 0's parameters within 1e-5 of phase 11's
+    after step 3 (below 2 sum(lr), which any two AdamW runs of 3 steps
+    keep; largest difference printed), both ranks' equal;
+    each rank's CUDA context, step ms, peak memory, and the gradient
+    all_reduce and weight broadcast timed alone; (b) a one-rank ``nccl``
+    group in this process: ``local_mesh(1)`` is a ``cuda`` mesh,
+    ``reshard_tree`` lays qwen2-0.5b's tree (phase 11's weights after
+    step 3) on it bit for bit, ``restore(shardings=)`` of 11c's checkpoint
+    equals the plain restore, and ``flash_decode_combine`` and
+    ``pipeline_stage_step`` equal their one-rank answers.
 
 Phases 3-5 are the port's main path, phase 7 the store's, phase 8's
 ``ops.run_boundaries`` calls the run-boundary kernel's and phase 9 the
@@ -110,7 +127,8 @@ Phase 10's counters are zeroed and read the same way and reported
 (``launches_serve_path``); the LM stack has no kernel of its own, so none
 is required to launch there.  Phase 11's are reported as
 ``launches_train_path``, and its lineage queries must launch
-``range_join_mask``.  The JSON line reports phase 6's and phase 8's numbers
+``range_join_mask``; phase 12's as ``launches_dp_path`` (the ranks of 12a
+report theirs; the distributed pieces have no kernel).  The JSON line reports phase 6's and phase 8's numbers
 on the main paths' own operands.  Any failure raises and exits non-zero.
 Without CUDA, or without the port beside this script, it exits non-zero
 and prints no result.  The last three stdout lines are the card's name and
@@ -220,6 +238,16 @@ REMAT_TOL = 1e-5
 # phase 11c: train_loop at reduced() resumed from a checkpoint on the same card
 RESUME_SEQ = 64
 RESUME_TOL = 1e-6
+# phase 12a: train_loop data-parallel over DP_RANKS processes sharing the card
+# (a gloo group: NCCL takes one rank a card), DP_STEPS steps of phase 11's
+# batches, held to phase 11's steps; the gradient all_reduce timed on its own
+DP_RANKS, DP_STEPS, DP_TOL, DP_ALLREDUCE_REPS, DP_TIMEOUT_S = 2, 3, 1e-4, 2, 600
+# and every parameter within DP_PARAM_TOL of phase 11's: below 2 sum(lr), the
+# most that any two AdamW runs of DP_STEPS steps can differ by, so a wrong
+# gradient average or update shows there too
+DP_PARAM_TOL = 1e-5
+# phase 12b: flash-decode partials on a one-rank NCCL group
+FLASH_SHAPE, FLASH_TOL = (2, 14, 4096, 64), 1e-5
 
 
 def log(msg: str) -> None:
@@ -1796,8 +1824,10 @@ def train_step_flops(cfg, model, b, s, plan) -> float:
     return 3 * (2 * (n_layer + n_head) * t + attn) + remat
 
 
-def phase_train(torch, core, card, workdir) -> dict:
-    """The LM training path (module doc, phase 11)."""
+def phase_train(torch, core, card, workdir, keep) -> dict:
+    """The LM training path (module doc, phase 11).  ``keep`` receives the
+    parameters on the host after step DP_STEPS and the steps' metrics,
+    which phase 12 holds its ranks to."""
     import copy
     import dataclasses
 
@@ -1851,7 +1881,10 @@ def phase_train(torch, core, card, workdir) -> dict:
         steps.append(rec)
         log(f"  step {k}: {ms:.1f}ms loss {rec['loss']:.6f} grad_norm {rec['grad_norm']:.6f} "
             f"lr {rec['lr']:.3e} (lineage logged in {log_ms:.1f}ms)")
+        if k + 1 == DP_STEPS:
+            keep["params"] = [p.detach().to("cpu", copy=True) for p in model.parameters()]
     peak = torch.cuda.max_memory_allocated()
+    keep["steps"] = steps
     step_ms = float(np.median([r["ms"] for r in steps[1:]]))
     res = {"arch": cfg.name, "params": sum(p.numel() for p in model.parameters()),
            "batch": b, "seq": s, "plan": plan, "remat": cfg.remat, "step_flops": flops,
@@ -2024,6 +2057,278 @@ def train_resume(torch, cfg_full, workdir) -> dict:
         f"{save_s:.3f}s, restore {restore_s:.3f}s (codec {codec})")
     return {"resume_losses": straight, "resume_max_abs": resume_err,
             "ckpt_save_s": save_s, "ckpt_restore_s": restore_s}
+
+
+# --------------------------------------------------------------------------- #
+# The LM stack's distributed pieces (phase 12)
+# --------------------------------------------------------------------------- #
+def dp_worker(rank: int, world: int, workdir: str) -> int:
+    """One rank of phase 12a, run as ``chip_smoke.py --dp-rank R --dp-world
+    W --dp-dir D``: ``train_loop`` on ``cuda:0`` in a ``gloo`` group of W
+    ranks (file rendezvous in D), then the gradient all_reduce alone;
+    writes ``D/dp.rankR.json`` (rank 0 also compares its parameters with
+    phase 11's in ``D/phase11_params.pt``)."""
+    import dataclasses
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.distributed.collectives import all_reduce_mean, broadcast_tensors
+    from repro_torch.kernels import range_join as rj
+    from repro_torch.kernels import run_boundary as rb
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim.adamw import AdamWConfig
+
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 12a runs float32 matmuls at full precision, as phase 11")
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/dp.rendezvous", rank=rank,
+                            world_size=world)
+    try:
+        cfg = get_arch(TRAIN_ARCH)
+        shape = dataclasses.replace(SHAPES[TRAIN_SHAPE], global_batch=TRAIN_BATCH)
+        marks, metrics = [], []
+
+        def on_step(step, model, m):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            metrics.append(m)
+
+        t0 = time.perf_counter()
+        torch.zeros(1, device="cuda:0")  # the process's CUDA context, timed apart
+        torch.cuda.synchronize()
+        ctx_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, _ = train_loop(cfg, shape, steps=DP_STEPS, seed=TRAIN_SEED, opt_cfg=AdamWConfig(),
+                              device="cuda:0", log_every=1, on_step=on_step)
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = [(b - a) * 1e3 for a, b in zip([t0] + marks[:-1], marks)]
+        params = list(model.parameters())
+        digest = hashlib.sha256()
+        for p in params:
+            digest.update(p.detach().cpu().numpy().tobytes())
+        grads = [torch.ones_like(p) for p in params]
+        allreduce_ms = []
+        for _ in range(DP_ALLREDUCE_REPS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            all_reduce_mean(grads, dist.group.WORLD)
+            torch.cuda.synchronize()
+            allreduce_ms.append((time.perf_counter() - a) * 1e3)
+        if any(not torch.equal(g, torch.ones_like(g)) for g in grads[:4]):
+            raise AssertionError("the mean of equal gradients changed them")
+        del grads
+        dist.barrier()
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        broadcast_tensors(params, src=0)  # train_loop's start from rank 0's weights
+        torch.cuda.synchronize()
+        broadcast_ms = (time.perf_counter() - a) * 1e3
+        out = {"rank": rank, "metrics": metrics, "step_ms": step_ms, "peak": peak,
+               "ctx_ms": ctx_ms, "broadcast_ms": broadcast_ms,
+               "allreduce_ms": allreduce_ms, "grad_bytes": 4 * sum(p.numel() for p in params),
+               "digest": digest.hexdigest(),
+               "launches": rj.range_join_mask.launches + rj.range_join_tile_masks.launches
+               + rb.run_boundaries_packed.launches}
+        if rank == 0:
+            want = torch.load(os.path.join(workdir, "phase11_params.pt"), mmap=True)
+            err, worst = 0.0, ""
+            for (name, p), w in zip(model.named_parameters(), want):
+                d = float((p.detach() - w.to(p.device)).abs().max())
+                if d > err:
+                    err, worst = d, name
+            out["param_max_abs"], out["param_worst"] = err, worst
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"dp.rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_dp(torch, card, workdir, keep) -> dict:
+    """Phase 12a: ``train_loop`` data-parallel on DP_RANKS processes sharing
+    the card (module doc), held to phase 11's first DP_STEPS steps."""
+    torch.save(keep["params"], os.path.join(workdir, "phase11_params.pt"))
+    torch.cuda.empty_cache()
+    parent_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", str(r),
+                               "--dp-world", str(DP_RANKS), "--dp-dir", workdir],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(DP_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 12a rank {r} exited {p.returncode}:\n{out[-3000:]}")
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(workdir, f"dp.rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for line in outs[0].splitlines():
+        if line.startswith("step "):
+            log(f"  rank 0: {line}")
+    want = keep["steps"][:DP_STEPS]
+    err = 0.0
+    for rk in ranks:
+        if len(rk["metrics"]) != DP_STEPS or rk["digest"] != ranks[0]["digest"]:
+            raise AssertionError(f"phase 12a: rank {rk['rank']} ran {len(rk['metrics'])} steps "
+                                 "or its parameters differ from rank 0's")
+        for got, w in zip(rk["metrics"], want):
+            for key in ("loss", "grad_norm", "lr"):
+                err = max(err, abs(got[key] - w[key]))
+    if err > DP_TOL:
+        raise AssertionError(f"phase 12a: loss/grad_norm/lr differ from phase 11's by {err} "
+                             f"(atol {DP_TOL})")
+    # AdamW moves each entry by about lr a step whatever its gradient: a limit
+    # at or above adamw_bound could not fail
+    adamw_bound = 2 * sum(w["lr"] for w in want)
+    if DP_PARAM_TOL >= adamw_bound:
+        raise AssertionError(f"phase 12a: DP_PARAM_TOL {DP_PARAM_TOL} is not below 2 sum(lr) "
+                             f"= {adamw_bound}")
+    if ranks[0]["param_max_abs"] > DP_PARAM_TOL:
+        raise AssertionError(f"phase 12a: parameters differ from phase 11's by "
+                             f"{ranks[0]['param_max_abs']} (atol {DP_PARAM_TOL})")
+    res = {"ranks": DP_RANKS, "steps": DP_STEPS, "wall_s": wall, "parent_cuda_mem": parent_mem,
+           "metrics_max_abs": err, "param_max_abs": ranks[0]["param_max_abs"],
+           "param_worst": ranks[0]["param_worst"], "adamw_bound": adamw_bound,
+           "grad_bytes": ranks[0]["grad_bytes"],
+           "launches": sum(rk["launches"] for rk in ranks),
+           "per_rank": [{k: rk[k] for k in ("step_ms", "peak", "ctx_ms", "broadcast_ms",
+                                            "allreduce_ms")} for rk in ranks]}
+    for rk in ranks:
+        ms = rk["step_ms"]
+        log(f"  rank {rk['rank']}: CUDA context {rk['ctx_ms']:.1f}ms; step 1 (with init_model and "
+            f"the broadcast) {ms[0]:.1f}ms, steps 2-{DP_STEPS} "
+            f"{', '.join(f'{x:.1f}' for x in ms[1:])}ms; alone, staged through the host by "
+            f"gloo ({rk['grad_bytes']}B): gradient all_reduce "
+            f"{', '.join(f'{x:.1f}' for x in rk['allreduce_ms'])}ms, weight broadcast "
+            f"{rk['broadcast_ms']:.1f}ms; peak {rk['peak']}B")
+    log(f"  {card}: {DP_RANKS} ranks x 1 sequence of {TRAIN_SHAPE}, {DP_STEPS} steps in "
+        f"{wall:.2f}s (processes included); loss/grad_norm/lr max |diff| against phase 11 "
+        f"{err:.3e} (atol {DP_TOL}); parameters max |diff| {res['param_max_abs']:.3e} in "
+        f"{res['param_worst']} (atol {DP_PARAM_TOL}, below 2 sum(lr) = {adamw_bound:.3e}); "
+        f"parent holds {parent_mem}B")
+    return res
+
+
+def leaf_pairs(got: dict, want: dict):
+    """(got leaf, want leaf) of two nested dicts with the same keys."""
+    for k, w in want.items():
+        if isinstance(w, dict):
+            yield from leaf_pairs(got[k], w)
+        else:
+            yield got[k], w
+
+
+def phase_nccl(torch, card, workdir, keep) -> dict:
+    """Phase 12b: a one-rank NCCL group on the card: ``local_mesh``,
+    ``reshard_tree`` of qwen2-0.5b's tree, ``restore(shardings=)`` of
+    phase 11c's checkpoint and the collectives (module doc)."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.collectives import (flash_decode_combine,
+                                                     local_partial_attention,
+                                                     pipeline_stage_step)
+    from repro_torch.distributed.elastic import reshard_tree
+    from repro_torch.distributed.sharding import param_sharding
+    from repro_torch.launch.mesh import local_mesh
+    from repro_torch.models.convert import shape_tree, spec_tree, to_reference
+    from repro_torch.models.layers import Init
+    from repro_torch.models.model import LM
+
+    dist.init_process_group("nccl", init_method=f"file://{workdir}/nccl.rendezvous", rank=0,
+                            world_size=1)
+    res = {}
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"phase 12b: backend {dist.get_backend()}")
+        mesh = local_mesh(1, device="cuda:0")
+        if mesh.device_type != "cuda" or tuple(mesh.mesh_dim_names) != ("data", "model"):
+            raise AssertionError(f"phase 12b: local_mesh(1) is {mesh}")
+        cfg = get_arch(TRAIN_ARCH)
+        meta = LM(Init(None, "meta"), cfg)
+        tree = to_reference(meta, keep["params"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        placed = reshard_tree(tree, spec_tree(meta), mesh)
+        torch.cuda.synchronize()
+        res["reshard_s"] = time.perf_counter() - t0
+        n_leaves = 0
+        for dt, host in leaf_pairs(placed, tree):
+            full = dt.full_tensor()
+            if full.device.type != "cuda" or not torch.equal(full.cpu(), torch.from_numpy(host)):
+                raise AssertionError("phase 12b: a leaf differs after reshard_tree")
+            n_leaves += 1
+        res["reshard_leaves"] = n_leaves
+        del placed, tree
+
+        red = LM(Init(None, "meta"), cfg.reduced())
+        sh = param_sharding(mesh, spec_tree(red), shapes_tree=shape_tree(red))
+        mgr = CheckpointManager(os.path.join(workdir, "straight"))
+        t0 = time.perf_counter()
+        got, extra = mgr.restore(device="cuda:0", shardings={"params": sh, "opt": {"m": sh, "v": sh}})
+        res["restore_sharded_s"] = time.perf_counter() - t0
+        plain, _ = mgr.restore(device="cpu")
+        for part in (("params",), ("opt", "m"), ("opt", "v")):
+            g, w = got, plain
+            for key in part:
+                g, w = g[key], w[key]
+            for a, b in leaf_pairs(g, w):
+                if not torch.equal(a.full_tensor().cpu(), b):
+                    raise AssertionError("phase 12b: a sharded restore differs")
+        if hasattr(got["opt"]["step"], "full_tensor") or extra["step"] != 5:
+            raise AssertionError("phase 12b: the unsharded leaves are not plain tensors")
+
+        gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+        b, h, t, d = FLASH_SHAPE
+        q, k, v = (torch.randn(s, generator=gen, device="cuda")
+                   for s in ((b, h, 1, d), (b, h, t, d), (b, h, t, d)))
+        valid = (torch.arange(t, device="cuda") < t - 7).expand(b, t)
+        m, l, o = local_partial_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+        laps = []
+        for _ in range(4):  # the first call also sets up NCCL's communicator
+            t0 = time.perf_counter()
+            out = flash_decode_combine(m, l, o)
+            torch.cuda.synchronize()
+            laps.append((time.perf_counter() - t0) * 1e3)
+        res["first_collective_ms"], res["flash_combine_ms"] = laps[0], float(np.median(laps[1:]))
+        if not torch.equal(out, o / torch.clamp(l, min=1e-30)[..., None]):
+            raise AssertionError("phase 12b: flash_decode_combine on one rank changed the answer")
+        s_ = (q @ k.transpose(-1, -2)) * d**-0.5
+        want = torch.softmax(s_.masked_fill(~valid[:, None, None, :], float("-inf")), -1) @ v
+        res["flash_max_abs"] = float((out - want).abs().max())
+        if res["flash_max_abs"] > FLASH_TOL:
+            raise AssertionError(f"phase 12b: flash-decode differs from softmax attention by "
+                                 f"{res['flash_max_abs']} (atol {FLASH_TOL})")
+        x = torch.randn((4, 896), generator=gen, device="cuda")
+        ring = pipeline_stage_step(lambda y: y * 2.0 + 1.0, x)
+        if not torch.equal(ring, x * 2.0 + 1.0):
+            raise AssertionError("phase 12b: pipeline_stage_step on one rank changed the answer")
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    log(f"  {card}: nccl, local_mesh(1) on cuda; reshard_tree of {res['reshard_leaves']} leaves "
+        f"in {res['reshard_s']:.3f}s, bit-exact; sharded restore of phase 11c's checkpoint "
+        f"{res['restore_sharded_s']:.3f}s, equal; flash_decode_combine {FLASH_SHAPE} "
+        f"{res['flash_combine_ms']:.3f}ms (median of 3; the first, with NCCL's set-up, "
+        f"{res['first_collective_ms']:.1f}ms), max |diff| against softmax attention "
+        f"{res['flash_max_abs']:.3e} (atol {FLASH_TOL}); pipeline_stage_step equal")
+    return res
 
 
 # --------------------------------------------------------------------------- #
@@ -2283,10 +2588,15 @@ def main(argv=None) -> int:
         help="csrc directory of an earlier commit: its kernels are built too and "
              "timed beside these in the same call (ms_before)",
     )
+    parser.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--dp-world", type=int, default=DP_RANKS, help=argparse.SUPPRESS)
+    parser.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if args.dp_rank is not None:  # one rank of phase 12a
+        return dp_worker(args.dp_rank, args.dp_world, args.dp_dir)
     sys.path.insert(0, str(ROOT / "src"))
     try:
         import repro_torch.core as core
@@ -2409,11 +2719,25 @@ def main(argv=None) -> int:
     # the pipeline's lineage queries (11d) must launch range_join_mask
     for w in wrappers.values():
         w.launches = 0
+    keep: dict = {}
     with tempfile.TemporaryDirectory(prefix="smoke_train_", dir=build_dir) as workdir:
         training, _ = main_path(wrappers, ("range_join_mask",), lambda: run_phase(
-            torch, wrappers, "11 training", lambda: phase_train(torch, core, card, workdir)))
-    train_launches = {k: w.launches for k, w in wrappers.items()}
-    log(f"train-path launches: {train_launches}")
+            torch, wrappers, "11 training", lambda: phase_train(torch, core, card, workdir,
+                                                                keep)))
+        train_launches = {k: w.launches for k, w in wrappers.items()}
+        log(f"train-path launches: {train_launches}")
+
+        # the distributed path, phase 12: no kernel of its own; the ranks of
+        # 12a report theirs, 12b runs here, counted from zero
+        for w in wrappers.values():
+            w.launches = 0
+        dp = run_phase(torch, wrappers, "12a data-parallel training",
+                       lambda: phase_dp(torch, card, workdir, keep))
+        dp["nccl"] = run_phase(torch, wrappers, "12b one-rank nccl group",
+                               lambda: phase_nccl(torch, card, workdir, keep))
+    keep.clear()
+    dp_launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"distributed-path launches: {dp_launches} (ranks of 12a: {dp['launches']})")
 
     kernels = []
     for name, rec in main_recs.items():
@@ -2438,12 +2762,14 @@ def main(argv=None) -> int:
                 "launches_shard_path": shard_launches[name]} if name in joins else {}),
             "launches_serve_path": serve_launches[name],
             "launches_train_path": train_launches[name],
+            "launches_dp_path": dp_launches[name],
             **({"ops_ms": rec["ops_ms"]} if "ops_ms" in rec else {}),
         })
     log(f"store: {json.dumps(store)}")
     log(f"sharded: {json.dumps(sharded)}")
     log(f"serving: {json.dumps(serving)}")
     log(f"training: {json.dumps(training)}")
+    log(f"distributed: {json.dumps(dp)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

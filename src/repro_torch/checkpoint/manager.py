@@ -10,7 +10,16 @@ codec, so a checkpoint written by either package restores in the other::
 Writes go to ``<dir>.tmp`` then ``os.replace``: a crash mid-save can never
 corrupt the pointer or a previous checkpoint.  A tree's leaves are
 tensors (on any device; gathered to the host at ``save``), numpy arrays
-or numbers.  ``restore(device=...)`` returns tensors on that device.
+or numbers.  ``restore(device=...)`` returns tensors on that device, and
+``restore(shardings=...)`` lays the leaves it names on a mesh, as
+``DTensor``s, for elastic restarts on another mesh.
+
+Under ``torch.distributed`` every rank calls ``save`` and the manager
+decides: only global rank 0 writes.  A ``DTensor`` leaf is gathered with
+``full_tensor()``, a collective, on every rank; other leaves are read on
+rank 0 alone.  The caller puts a barrier between a save and a restore on
+other ranks.  ``restore`` reads
+the files on every rank that calls it.
 
 The codec is ``zstandard`` when installed, stdlib ``zlib`` otherwise; the
 manifest records it.  bfloat16 leaves (numpy has none without
@@ -28,6 +37,7 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..kernels.ops import resolve_device
 
@@ -99,6 +109,8 @@ def _unflatten(flat: dict):
 def _to_host(v) -> tuple[str, np.ndarray]:
     """(dtype string, host array whose bytes are the leaf's) of a leaf."""
     if isinstance(v, torch.Tensor):
+        if hasattr(v, "full_tensor"):  # a DTensor: gathered from its mesh
+            v = v.full_tensor()
         t = v.detach().to("cpu", copy=True).contiguous()
         if t.dtype == torch.bfloat16:
             return _BF16, t.view(torch.int16).numpy().reshape(t.shape)
@@ -106,6 +118,10 @@ def _to_host(v) -> tuple[str, np.ndarray]:
     else:
         a = np.array(v)
     return str(a.dtype), a
+
+
+def _writes() -> bool:
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 class CheckpointManager:
@@ -118,8 +134,15 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ #
     def save(self, step: int, tree, extra: dict | None = None) -> str:
-        """Save a tree of tensors (gathered to the host first)."""
-        host = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        """Save a tree of tensors (gathered to the host first; see the
+        module doc for ``DTensor`` leaves and ranks)."""
+        flat = _flatten(tree)
+        if not _writes():
+            for v in flat.values():
+                if hasattr(v, "full_tensor"):  # every rank joins a DTensor's gather
+                    v.full_tensor()
+            return self._dir(step)
+        host = {k: _to_host(v) for k, v in flat.items()}
         if self.async_save:
             self.wait()
             self._thread = threading.Thread(
@@ -186,9 +209,13 @@ class CheckpointManager:
             return None
         return int(name.split("_")[1])
 
-    def restore(self, step: int | None = None, device="cuda"):
+    def restore(self, step: int | None = None, device="cuda", shardings=None):
         """Load ``(tree, extra)`` with every leaf a tensor on ``device``;
-        ``(None, None)`` when there is no checkpoint."""
+        ``(None, None)`` when there is no checkpoint.  ``shardings``: an
+        optional tree of ``distributed.sharding.NamedSharding`` (e.g.
+        ``param_sharding``'s) whose leaves are laid on their mesh as
+        ``DTensor``s (every rank keeps its own blocks), the others left
+        on ``device``."""
         dev = resolve_device(device)
         if step is None:
             step = self.latest_step()
@@ -216,5 +243,9 @@ class CheckpointManager:
                 nbytes = n * dt.itemsize
                 t = torch.from_numpy(np.frombuffer(raw, dt, count=n, offset=off).copy())
             off += nbytes
-            flat[rec["path"]] = t.reshape(shape).to(dev)
+            flat[rec["path"]] = t.reshape(shape)
+        flat_sh = _flatten(shardings) if shardings is not None else {}
+        if flat_sh:
+            from ..distributed.elastic import place
+        flat = {k: place(v, flat_sh[k]) if k in flat_sh else v.to(dev) for k, v in flat.items()}
         return _unflatten(flat), manifest["extra"]

@@ -1,7 +1,21 @@
-"""Distribution helpers of the port: ``sharding.hint`` and
-``elastic.StepWatchdog`` so far.  The meshes, parameter shardings,
-collectives and ``reshard_tree`` of ``repro.distributed`` come with the
-port's distributed slice."""
+"""Distribution layer of the port (``repro.distributed``): logical-axis
+sharding rules resolved against a ``DeviceMesh`` (``sharding``), explicit
+collectives over a process group (``collectives``), and ``reshard_tree``
+and the straggler watchdog (``elastic``).  Meshes are made in
+``launch.mesh``; ``launch.train`` trains data-parallel over a group."""
 
-from .elastic import StepWatchdog  # noqa: F401
-from .sharding import hint  # noqa: F401
+from .collectives import (  # noqa: F401
+    flash_decode_combine,
+    local_partial_attention,
+    pipeline_stage_step,
+)
+from .elastic import StepWatchdog, reshard_tree  # noqa: F401
+from .sharding import (  # noqa: F401
+    AxisRules,
+    batch_sharding,
+    cache_sharding,
+    default_rules,
+    hint,
+    logical_to_spec,
+    param_sharding,
+)

@@ -1,15 +1,20 @@
-"""Straggler mitigation for the host training loop.
+"""Elastic scaling + straggler mitigation hooks.
 
-The port of ``repro.distributed.elastic``'s ``StepWatchdog``, which
-imports nothing of JAX.  A real multi-host deployment cannot observe its
-peers' progress from inside a step, so the watchdog wraps the host-side
-loop: it tracks a robust (median + MAD) step-time envelope and fires a
-callback when the current step exceeds the deadline, which a launcher maps
-to "checkpoint-and-evict".  Unlike the reference's, ``guard`` re-raises
-an exception of the step in the caller's thread (the reference's waits
-for ever on a step that raised).  ``reshard_tree`` (placing a host tree
-onto a mesh) comes with the port's distributed slice, which brings the
-meshes and parameter shardings it needs.
+The port of ``repro.distributed.elastic``.
+
+Elasticity: checkpoints are saved unsharded (gathered), so scaling in/out
+is "restore onto the new mesh" — :func:`reshard_tree` places a host tree
+onto any mesh via the same logical rules.  The data pipeline is a pure
+function of the step counter, so a re-sharded restart replays the
+identical global batch stream.
+
+Straggler mitigation: a real multi-host deployment cannot observe its
+peers' progress from inside a step, so :class:`StepWatchdog` wraps the
+host-side loop: it tracks a robust (median + MAD) step-time envelope and
+fires a callback when the current step exceeds the deadline, which a
+launcher maps to "checkpoint-and-evict".  Unlike the reference's,
+``guard`` re-raises an exception of the step in the caller's thread (the
+reference's waits for ever on a step that raised).
 """
 
 from __future__ import annotations
@@ -18,7 +23,38 @@ import threading
 import time
 from dataclasses import dataclass, field
 
-__all__ = ["StepWatchdog"]
+import numpy as np
+import torch
+
+from .sharding import AxisRules, param_sharding
+
+__all__ = ["reshard_tree", "StepWatchdog", "place"]
+
+
+def place(value, sharding):
+    """A ``DTensor`` of ``value`` (numpy array or tensor) laid on
+    ``sharding.mesh`` as ``sharding`` says.  Every rank holds the whole
+    value, so each keeps its own block and nothing is sent
+    (``src_data_rank=None``)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if not isinstance(value, torch.Tensor):
+        value = torch.from_numpy(np.array(value))
+    return distribute_tensor(value.to(sharding.mesh.device_type), sharding.mesh,
+                             sharding.placements, src_data_rank=None)
+
+
+def reshard_tree(host_tree, spec_tree, mesh, rules: AxisRules | None = None):
+    """Place a host (numpy or tensor) tree onto ``mesh`` under logical
+    specs: a tree of ``DTensor``s, each rank holding its blocks."""
+    sh = param_sharding(mesh, spec_tree, rules)
+
+    def walk(h, s):
+        if isinstance(h, dict):
+            return {k: walk(v, s[k]) for k, v in h.items()}
+        return place(h, s)
+
+    return walk(host_tree, sh)
 
 
 @dataclass

@@ -1,3 +1,4 @@
 """Launchers of the port: ``serve`` (batched greedy decoding), ``train``
-(the trainer) and ``steps`` (the step functions both share).  Meshes and
-the dry run wait for the port's distributed slice."""
+(the trainer, data-parallel over an initialised process group), ``steps``
+(the step functions both share) and ``mesh`` (``DeviceMesh``es over a
+group's ranks).  The dry run waits for the port's own design."""

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ArchConfig, ShapeConfig
+from ..distributed.collectives import all_reduce_mean
 from ..models.model import decode_step, lm_loss, prefill
 from ..optim.adamw import AdamWConfig, adamw_update
 
@@ -70,7 +71,7 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
     return {"tokens": spec((b, s))}
 
 
-def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, plan: dict):
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, plan: dict, group=None):
     """The full update step ``train_step(model, opt_state, batch)`` →
     ``(model, opt_state, metrics)``, the parameters updated in place.
 
@@ -79,6 +80,13 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, plan: dict):
     by ``n_micro``, so live activations are one microbatch's.  As in the
     reference, the reported ``loss`` is ``ce + aux_weight * aux`` with one
     microbatch and the mean ``ce`` with several (the two differ for MoE).
+
+    With a process ``group`` (data parallelism: each rank's ``batch`` is
+    its block of the global batch), the gradients are averaged over the
+    ranks after the accumulation (``collectives.all_reduce_mean``, in flat
+    float32 buckets), then every rank takes the same AdamW step; the
+    reported ``loss``, ``ce`` and ``aux`` are the means over the ranks of
+    each rank's.
     """
     n_micro = int(plan.get("n_micro", 1))
 
@@ -108,6 +116,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, plan: dict):
             grads = [g / n_micro for g in grads]
             ce, aux = ce / n_micro, aux / n_micro
             loss = ce
+        if group is not None:
+            grads = all_reduce_mean(grads, group)
+            loss, ce, aux = all_reduce_mean([torch.stack([loss, ce, aux]).float()], group)[0]
         model, opt_state, metrics = adamw_update(model, grads, opt_state, opt_cfg)
         return model, opt_state, {**metrics, "loss": loss, "ce": ce, "aux": aux}
 

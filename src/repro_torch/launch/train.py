@@ -9,8 +9,21 @@ reference's layout (``models.to_reference``), so either package resumes
 from the other's.  ``examples/train_lm_torch.py`` drives it, and so does
 ``python -m repro_torch.launch.train --arch qwen2-0.5b --smoke --device cpu``.
 
-One device, no mesh: ``model_parallel`` must divide the device count and,
-until the port's distributed slice, be 1; the data-parallel width is 1.
+Without an initialised ``torch.distributed`` group it trains on one
+device, with no mesh.  In a group of W ranks (``torchrun``; ``main``
+starts the group from its environment) it trains data-parallel, one
+process a rank: rank k takes block k of each global batch
+(``TokenPipeline(data_shards=W, shard_id=k)``), so the ranks' batches
+together are the global batch; every rank starts from rank 0's weights
+(broadcast), averages the gradients with the others after backward, and
+takes the same AdamW step (``steps.make_train_step(group=...)``).  Only
+rank 0 logs lineage (its pipeline logs every shard's slice) and writes
+checkpoints, which every rank restores, at any W: the pipeline's state is
+its step.  The reference at ``dp > 1`` trains on rank 0's block alone
+(``ROADMAP.md`` §3, item 6); the port does not copy that.  Tensor
+parallelism (``model_parallel > 1``) waits for the port's tensor-parallel
+slice, and raises.
+
 An encoder's random ``frames`` come from a ``torch.Generator`` seeded with
 the step, so they differ from the reference's JAX RNG.
 """
@@ -18,20 +31,23 @@ the step, so they differ from the reference's JAX RNG.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.manager import CheckpointManager
 from ..configs import get_arch
 from ..configs.base import ShapeConfig
 from ..core.catalog import DSLog
 from ..data.pipeline import PipelineConfig, TokenPipeline
+from ..distributed.collectives import broadcast_tensors
 from ..distributed.elastic import StepWatchdog
-from ..kernels.ops import resolve_device
 from ..models.convert import copy_tree, to_reference, tree_values
 from ..models.model import init_model
 from ..optim.adamw import AdamWConfig, adamw_init
+from .mesh import rank_device
 from .steps import attn_plan, make_train_step
 
 __all__ = ["train_loop", "main"]
@@ -58,26 +74,39 @@ def train_loop(
     seed: int = 0,
     opt_cfg: AdamWConfig | None = None,
     device="cuda",
+    on_step=None,
 ):
     """Train ``cfg`` on ``shape``'s batches for ``steps`` steps; returns
-    ``(model, losses)`` with one loss a step run (fewer after a resume)."""
-    dev = resolve_device(device)
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if model_parallel < 1 or n_dev % model_parallel:
-        raise ValueError(f"model_parallel={model_parallel} does not divide {n_dev} device(s)")
+    ``(model, losses)`` with one loss a step run (fewer after a resume).
+    In a process group every rank calls it (see the module doc); ``device``
+    is this rank's (``launch.mesh.rank_device``).  ``on_step(step, model,
+    metrics)``, when given, is called after each step with the step's
+    metrics as floats."""
+    group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+    world = dist.get_world_size() if group is not None else 1
+    rank = dist.get_rank() if group is not None else 0
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(f"model_parallel={model_parallel} does not divide {world} rank(s)")
     if model_parallel != 1:
-        raise NotImplementedError("model parallelism comes with the port's distributed slice")
+        raise NotImplementedError(
+            "tensor parallelism (model_parallel > 1) comes with the port's tensor-parallel slice")
+    dev = rank_device(device)
+    if group is not None and dev.type == "cpu" and dist.get_backend() == "nccl":
+        raise ValueError("an nccl group reduces CUDA tensors: pass this rank's cuda device")
+    dp = world
     opt_cfg = opt_cfg or AdamWConfig(total_steps=steps)
-    plan = attn_plan(cfg, shape, dp_total=1)
+    plan = attn_plan(cfg, shape, dp_total=dp)
 
     model = init_model(cfg, seed, device=dev)
+    if dp > 1:
+        broadcast_tensors(model.parameters(), src=0)
     opt_state = adamw_init(model)
 
-    dslog = DSLog(root=lineage_dir, device=dev) if lineage_dir else None
+    dslog = DSLog(root=lineage_dir, device=dev) if lineage_dir and rank == 0 else None
     pipe = TokenPipeline(
         PipelineConfig(cfg.vocab, shape.seq_len, shape.global_batch, seed),
-        data_shards=1,
-        shard_id=0,
+        data_shards=dp,
+        shard_id=rank,
         dslog=dslog,
     )
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
@@ -96,11 +125,15 @@ def train_loop(
             }
             pipe.load_state_dict(extra["pipeline"])
             start_step = int(extra["step"]) + 1
-            print(f"resumed from step {start_step - 1}")
+            if rank == 0:
+                print(f"resumed from step {start_step - 1}")
 
-    step_fn = make_train_step(cfg, opt_cfg, plan)
+    step_fn = make_train_step(cfg, opt_cfg, plan, group=group if dp > 1 else None)
+    # the watchdog runs each step, and so the step's collectives, on its own
+    # thread: one step at a time, so every rank issues them in the same order
     watchdog = StepWatchdog()
     history = []
+    per = shape.global_batch // dp
     for step in range(start_step, steps):
         batch_np = pipe.next_batch()
         tokens = torch.from_numpy(batch_np["tokens"]).to(dev)
@@ -108,16 +141,16 @@ def train_loop(
         if cfg.encoder_only:
             gen = torch.Generator(device=dev)
             gen.manual_seed(step)
-            batch = {
-                "frames": torch.randn((shape.global_batch, shape.seq_len, cfg.frontend_dim),
-                                      generator=gen, device=dev),
-                "labels": tokens % cfg.vocab,
-            }
+            frames = torch.randn((shape.global_batch, shape.seq_len, cfg.frontend_dim),
+                                 generator=gen, device=dev)
+            batch = {"frames": frames[rank * per:(rank + 1) * per], "labels": tokens % cfg.vocab}
         t0 = time.time()
         model, opt_state, metrics = watchdog.guard(step_fn, model, opt_state, batch)
         loss = float(metrics["loss"])
         history.append(loss)
-        if step % log_every == 0 or step == steps - 1:
+        if on_step is not None:
+            on_step(step, model, {k: float(v) for k, v in metrics.items()})
+        if rank == 0 and (step % log_every == 0 or step == steps - 1):
             dt = time.time() - t0
             print(
                 f"step {step:5d} loss {loss:8.4f} "
@@ -126,15 +159,20 @@ def train_loop(
                 flush=True,
             )
         if mgr is not None and (step + 1) % ckpt_every == 0:
+            # every rank calls save; the manager writes on rank 0 alone
             mgr.save(
                 step,
                 _checkpoint_tree(model, opt_state),
                 extra={"step": step, "pipeline": pipe.state_dict()},
             )
+            if dp > 1:
+                dist.barrier()
     if mgr is not None:
         mgr.wait()
     if dslog is not None:
         dslog.save()
+    if dp > 1:
+        dist.barrier()
     return model, history
 
 
@@ -154,15 +192,24 @@ def main(argv=None) -> None:
     if args.smoke:
         cfg = cfg.reduced()
     shape = ShapeConfig("cli", args.seq_len, args.global_batch, "train")
-    train_loop(
-        cfg,
-        shape,
-        steps=args.steps,
-        ckpt_dir=args.ckpt_dir,
-        lineage_dir=args.lineage_dir,
-        model_parallel=args.model_parallel,
-        device=args.device,
-    )
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:  # under torchrun: one process a rank, its card from train_loop's rank_device
+        if args.device not in ("cuda", "cpu"):
+            raise ValueError(f"--device {args.device}: under torchrun each rank takes cuda or cpu")
+        dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
+    try:
+        train_loop(
+            cfg,
+            shape,
+            steps=args.steps,
+            ckpt_dir=args.ckpt_dir,
+            lineage_dir=args.lineage_dir,
+            model_parallel=args.model_parallel,
+            device=args.device,
+        )
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

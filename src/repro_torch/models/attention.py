@@ -32,10 +32,10 @@ class Attention(nn.Module):
     def __init__(self, init: Init, cfg):
         super().__init__()
         d, hd = cfg.d_model, cfg.hd
-        self.q = Dense(init, d, cfg.n_heads * hd, cfg.qkv_bias)
-        self.k = Dense(init, d, cfg.n_kv_heads * hd, cfg.qkv_bias)
-        self.v = Dense(init, d, cfg.n_kv_heads * hd, cfg.qkv_bias)
-        self.o = Dense(init, cfg.n_heads * hd, d)
+        self.q = Dense(init, d, cfg.n_heads * hd, ("fsdp", "tp"), cfg.qkv_bias)
+        self.k = Dense(init, d, cfg.n_kv_heads * hd, ("fsdp", "tp"), cfg.qkv_bias)
+        self.v = Dense(init, d, cfg.n_kv_heads * hd, ("fsdp", "tp"), cfg.qkv_bias)
+        self.o = Dense(init, cfg.n_heads * hd, d, ("tp", "fsdp"))
 
 
 def _split_heads(x, n_heads, hd):

@@ -1,6 +1,8 @@
 """Carry weights between the packages: a ``repro.models`` value tree, as
 numpy arrays, into the port's modules (``copy_tree``/``from_reference``),
-and the port's parameters back into that tree (``to_reference``).
+and the port's parameters back into that tree (``to_reference``); and
+the reference's logical spec tree and parameter shapes of a model
+(``spec_tree``, ``shape_tree``), for ``distributed.sharding``.
 
 Each parameter of the port's module tree is named by the reference's
 tree path, with the layer index where the reference stacks layers on a
@@ -22,7 +24,8 @@ from ..kernels.ops import resolve_device
 from .layers import Init
 from .model import LM
 
-__all__ = ["copy_tree", "from_reference", "to_reference", "tree_values"]
+__all__ = ["copy_tree", "from_reference", "to_reference", "tree_values", "spec_tree",
+           "shape_tree"]
 
 
 def _leaves(tree, prefix=()):
@@ -105,10 +108,50 @@ def to_reference(module: nn.Module, values=None) -> dict:
             leaf = np.stack([a for _, a in sorted(items, key=lambda it: it[0])])
         else:
             leaf = items[0][1]
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = leaf
+        _set_leaf(tree, path, leaf)
+    return tree
+
+
+def _set_leaf(tree: dict, path, leaf) -> None:
+    node = tree
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = leaf
+
+
+def spec_tree(module: nn.Module) -> dict:
+    """The reference's logical spec tree of ``module``'s parameters (the
+    second value of ``repro.models.model.init_model``): each leaf is the
+    ``specs`` entry of the module that owns the parameter, and a layer's
+    leaf gets the leading ``None`` of the stacked layer axis."""
+    tree: dict = {}
+    seen: dict = {}
+    for mod_name, mod in module.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            path, indices = _split_name(f"{mod_name}.{pname}" if mod_name else pname)
+            try:
+                spec = (None,) * len(indices) + tuple(mod.specs[pname])
+            except (AttributeError, KeyError):
+                raise KeyError(f"{type(mod).__name__} declares no spec for {pname}") from None
+            if seen.setdefault(path, spec) != spec:
+                raise ValueError(f"layers disagree on the spec of {'/'.join(path)}")
+            _set_leaf(tree, path, spec)
+    return tree
+
+
+def shape_tree(module: nn.Module) -> dict:
+    """The shape (``torch.Size``) of each leaf of ``to_reference(module)``,
+    without copying: layer leaves stacked on a leading ``L`` axis.  On a
+    ``meta``-device model it costs no memory (``LM(Init(None, "meta"),
+    cfg)``), so it gives a published configuration's shapes."""
+    stacks: dict = {}
+    for name, param in module.named_parameters():
+        path, indices = _split_name(name)
+        stacks.setdefault(path, []).append((indices, tuple(param.shape)))
+    tree: dict = {}
+    for path, items in stacks.items():
+        shape = items[0][1]
+        _set_leaf(tree, path, torch.Size((len(items),) + shape if items[0][0] else shape))
     return tree
 
 

@@ -7,9 +7,14 @@ such as ``layers.3.attn.q.w`` names the reference leaf
 ``tree["layers"]["attn"]["q"]["w"][3]`` (``convert.from_reference``).
 Weights keep the reference's ``[d_in, d_out]`` layout: ``dense`` is
 ``x @ w``, and carrying weights across is a copy, not a transpose.  The
-layer functions take the module as the reference's take its dict.  The
-logical partition specs of the reference's ``P`` leaves wait for the
-port's distributed slice.
+layer functions take the module as the reference's take its dict.
+
+Each module holds the logical partition specs of its own parameters, the
+reference's ``P`` leaves, in ``specs`` (parameter name → a tuple with one
+entry a dimension): ``"fsdp"`` (ZeRO-3 over the data axis), ``"tp"``
+(tensor parallel over the model axis) or ``None`` (replicated).
+``convert.spec_tree`` gathers them into the reference's spec tree, and
+``repro_torch.distributed.sharding`` resolves them against a mesh.
 """
 
 from __future__ import annotations
@@ -63,12 +68,15 @@ class Init:
 
 
 class Dense(nn.Module):
-    """``{"w": [d_in, d_out], "b": [d_out]}`` (``b`` only with ``bias``)."""
+    """``{"w": [d_in, d_out], "b": [d_out]}`` (``b`` only with ``bias``);
+    ``w`` takes ``spec`` (the reference's ``dense_init`` argument; most of
+    its layers pass ``("fsdp", "tp")``), ``b`` its last entry."""
 
-    def __init__(self, init: Init, d_in, d_out, bias=False, scale=None):
+    def __init__(self, init: Init, d_in, d_out, spec=("fsdp", "tp"), bias=False, scale=None):
         super().__init__()
         self.w = init.normal((d_in, d_out), d_in**-0.5 if scale is None else scale)
         self.b = init.full((d_out,), 0.0) if bias else None
+        self.specs = {"w": tuple(spec), "b": (spec[-1],)}
 
 
 def dense(p: Dense, x):
@@ -79,6 +87,8 @@ def dense(p: Dense, x):
 
 
 class RMSNorm(nn.Module):
+    specs = {"g": (None,)}
+
     def __init__(self, init: Init, d):
         super().__init__()
         self.g = init.full((d,), 1.0)
@@ -92,6 +102,8 @@ def rmsnorm(p: RMSNorm, x, eps=1e-6):
 
 
 class LayerNorm(nn.Module):
+    specs = {"g": (None,), "b": (None,)}
+
     def __init__(self, init: Init, d):
         super().__init__()
         self.g = init.full((d,), 1.0)
@@ -109,9 +121,9 @@ def layernorm(p: LayerNorm, x, eps=1e-6):
 class MLP(nn.Module):
     def __init__(self, init: Init, d_model, d_ff, act="swiglu"):
         super().__init__()
-        self.up = Dense(init, d_model, d_ff)
-        self.down = Dense(init, d_ff, d_model, scale=d_ff**-0.5)
-        self.gate = Dense(init, d_model, d_ff) if act == "swiglu" else None
+        self.up = Dense(init, d_model, d_ff, ("fsdp", "tp"))
+        self.down = Dense(init, d_ff, d_model, ("tp", "fsdp"), scale=d_ff**-0.5)
+        self.gate = Dense(init, d_model, d_ff, ("fsdp", "tp")) if act == "swiglu" else None
 
 
 def mlp(p: MLP, x, act="swiglu"):
@@ -125,6 +137,8 @@ def mlp(p: MLP, x, act="swiglu"):
 
 
 class Embed(nn.Module):
+    specs = {"table": ("tp", "fsdp")}
+
     def __init__(self, init: Init, vocab, d):
         super().__init__()
         # N(0, 1/sqrt(d)) keeps tied-head logits O(1) at init

@@ -46,12 +46,14 @@ class LM(nn.Module):
     def __init__(self, init: Init, cfg: ArchConfig):
         super().__init__()
         if cfg.frontend == "frames":
-            self.frontend_proj = Dense(init, cfg.frontend_dim, cfg.d_model, bias=True)
+            self.frontend_proj = Dense(init, cfg.frontend_dim, cfg.d_model, ("fsdp", "tp"),
+                                       bias=True)
         self.embed = Embed(init, cfg.vocab_padded, cfg.d_model)
         self.layers = nn.ModuleList(Layer(init, cfg) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(init, cfg.d_model)
         if not cfg.tie_embeddings:
-            self.head = Dense(init, cfg.d_model, cfg.vocab_padded, scale=cfg.d_model**-0.5)
+            self.head = Dense(init, cfg.d_model, cfg.vocab_padded, ("fsdp", "tp"),
+                              scale=cfg.d_model**-0.5)
 
 
 def init_model(cfg: ArchConfig, seed: int = 0, *, device="cuda", dtype=torch.float32) -> LM:

@@ -1,11 +1,12 @@
 """Mixture-of-Experts layer: GShard-style capacity dispatch, top-k routing,
 shared experts (Qwen-MoE), load-balance aux loss.
 
-The port of ``repro.models.moe``.  Expert weights are ``[E, D, F]``; the
-dispatch one-hot keeps tokens grouped by their batch row.  The ``sorted``
-dispatch's scatter-add is ``index_put_(accumulate=True)``, which on CUDA
-adds with float atomics in no fixed order: its results match the
-reference within a tolerance, not bit for bit.
+The port of ``repro.models.moe``.  Expert weights are ``[E, D, F]`` with
+``D → fsdp`` and ``F → tp``; the dispatch one-hot keeps tokens grouped by
+their batch row.  The ``sorted`` dispatch's scatter-add is
+``index_put_(accumulate=True)``, which on CUDA adds with float atomics in
+no fixed order: its results match the reference within a tolerance, not
+bit for bit.
 """
 
 from __future__ import annotations
@@ -21,12 +22,15 @@ __all__ = ["MoE", "moe_apply"]
 
 
 class MoE(nn.Module):
+    specs = {"gate_w": (None, "fsdp", "tp"), "up_w": (None, "fsdp", "tp"),
+             "down_w": (None, "tp", "fsdp")}
+
     def __init__(self, init: Init, cfg):
         super().__init__()
         m = cfg.moe
         d = cfg.d_model
         f = m.d_ff_expert or cfg.d_ff
-        self.router = Dense(init, d, m.n_experts)
+        self.router = Dense(init, d, m.n_experts, (None, None))
         self.gate_w = init.normal((m.n_experts, d, f), d**-0.5)
         self.up_w = init.normal((m.n_experts, d, f), d**-0.5)
         self.down_w = init.normal((m.n_experts, f, d), f**-0.5)
@@ -34,7 +38,7 @@ class MoE(nn.Module):
             # shared experts are dense MLPs applied to every token, fused
             # into one wide MLP (mathematically identical, one less einsum)
             self.shared = MLP(init, d, m.n_shared * f, "swiglu")
-            self.shared_gate = Dense(init, d, 1)
+            self.shared_gate = Dense(init, d, 1, (None, None))
 
 
 def moe_apply(p: MoE, x, cfg):

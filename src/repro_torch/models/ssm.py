@@ -33,20 +33,23 @@ def _dims(cfg):
 
 
 class SSM(nn.Module):
+    specs = {"conv_w": (None, "tp"), "conv_b": ("tp",), "A_log": (None,), "D": (None,),
+             "dt_bias": (None,)}
+
     def __init__(self, init: Init, cfg):
         super().__init__()
         s = cfg.ssm
         d = cfg.d_model
         d_inner, n_heads, n_groups, conv_ch = _dims(cfg)
         d_in_proj = 2 * d_inner + 2 * n_groups * s.d_state + n_heads
-        self.in_proj = Dense(init, d, d_in_proj)
+        self.in_proj = Dense(init, d, d_in_proj, ("fsdp", "tp"))
         self.conv_w = init.normal((s.d_conv, conv_ch), 0.2)
         self.conv_b = init.full((conv_ch,), 0.0)
         self.A_log = init.tensor(torch.log(torch.linspace(1.0, 16.0, n_heads)))
         self.D = init.full((n_heads,), 1.0, torch.float32)
         self.dt_bias = init.full((n_heads,), 0.0, torch.float32)
         self.norm = RMSNorm(init, d_inner)
-        self.out_proj = Dense(init, d_inner, d, scale=d_inner**-0.5)
+        self.out_proj = Dense(init, d_inner, d, ("tp", "fsdp"), scale=d_inner**-0.5)
 
 
 def _split_proj(cfg, zxbcdt):

@@ -563,3 +563,99 @@ def test_train_loop_on_card_resumes_and_restores_on_cpu(cuda_device, tmp_path):
     for k, v in tree.items():
         assert on_card[k].device.type == "cuda" and torch.equal(on_card[k], v)
         assert on_cpu[k].device.type == "cpu" and torch.equal(on_cpu[k], v.cpu())
+
+
+# --------------------------------------------------------------------------- #
+# The distributed pieces on a one-rank NCCL group (chip_smoke.py phase 12b at
+# reduced()): the group lives for one test, so no other test sees it
+# --------------------------------------------------------------------------- #
+@pytest.fixture
+def nccl_rank(cuda_device, tmp_path):
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+                            world_size=1)
+    try:
+        yield torch.device("cuda:0")
+    finally:
+        dist.destroy_process_group()
+
+
+def _reduced_qwen2():
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_model, to_reference
+    from repro_torch.models.convert import shape_tree, spec_tree
+
+    cfg = get_arch("qwen2-0.5b").reduced()
+    model = init_model(cfg, 3, device="cpu")
+    return cfg, to_reference(model), spec_tree(model), shape_tree(model)
+
+
+def _pairs(got, want):
+    if isinstance(want, dict):
+        for k in want:
+            yield from _pairs(got[k], want[k])
+    else:
+        yield got, want
+
+
+def test_local_mesh_and_reshard_tree_on_one_nccl_rank(nccl_rank):
+    """``local_mesh(1)`` is a ``cuda`` mesh over the NCCL group, and
+    ``reshard_tree`` lays the reference-layout tree on it bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.distributed.elastic import reshard_tree
+    from repro_torch.launch.mesh import local_mesh
+
+    assert dist.get_backend() == "nccl"
+    mesh = local_mesh(1, device=nccl_rank)
+    assert mesh.device_type == "cuda" and tuple(mesh.mesh_dim_names) == ("data", "model")
+    _, tree, specs, _ = _reduced_qwen2()
+    placed = reshard_tree(tree, specs, mesh)
+    for dt, host in _pairs(placed, tree):
+        assert dt.to_local().device.type == "cuda"
+        assert torch.equal(dt.full_tensor().cpu(), torch.from_numpy(host))
+
+
+def test_sharded_restore_on_one_nccl_rank(nccl_rank, tmp_path):
+    """``train_loop`` on the card (a one-rank group trains as one process)
+    writes a checkpoint whose ``restore(shardings=)`` equals the plain
+    restore, with the unnamed leaves left plain."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.sharding import param_sharding
+    from repro_torch.launch.mesh import local_mesh
+    from repro_torch.launch.train import train_loop
+
+    cfg, _, specs, shapes = _reduced_qwen2()
+    train_loop(cfg, ShapeConfig("t", 32, 2, "train"), steps=3, ckpt_dir=str(tmp_path / "ck"),
+               ckpt_every=3, log_every=100, device=nccl_rank)
+    sh = param_sharding(local_mesh(1, device=nccl_rank), specs, shapes_tree=shapes)
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    got, extra = mgr.restore(device=nccl_rank, shardings={"params": sh, "opt": {"m": sh, "v": sh}})
+    plain, _ = mgr.restore(device="cpu")
+    assert extra["step"] == 2 and not hasattr(got["opt"]["step"], "full_tensor")
+    for part, want in ((got["params"], plain["params"]), (got["opt"]["m"], plain["opt"]["m"]),
+                       (got["opt"]["v"], plain["opt"]["v"])):
+        for dt, w in _pairs(part, want):
+            assert torch.equal(dt.full_tensor().cpu(), w)
+
+
+def test_collectives_through_nccl_equal_one_rank_answers(nccl_rank):
+    """On one rank the flash-decode combine is ``o / l`` and the ring shift
+    is the stage's own output, through NCCL's reductions and send/recv."""
+    from repro_torch.distributed.collectives import (flash_decode_combine,
+                                                     local_partial_attention,
+                                                     pipeline_stage_step)
+
+    gen = torch.Generator(device=nccl_rank).manual_seed(SEED)
+    q, k, v = (torch.randn(s, generator=gen, device=nccl_rank)
+               for s in ((2, 4, 1, 16), (2, 4, 64, 16), (2, 4, 64, 16)))
+    valid = (torch.arange(64, device=nccl_rank) <= 49).expand(2, 64)
+    m, l, o = local_partial_attention(q, k, v, valid)
+    out = flash_decode_combine(m, l, o)
+    assert torch.equal(out, o / torch.clamp(l, min=1e-30)[..., None])
+    s = (q @ k.transpose(-1, -2)) * 16**-0.5
+    want = torch.softmax(s.masked_fill(~valid[:, None, None, :], float("-inf")), -1) @ v
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+    x = torch.randn((4, 32), generator=gen, device=nccl_rank)
+    assert torch.equal(pipeline_stage_step(lambda y: y * 2.0 + 1.0, x), x * 2.0 + 1.0)
