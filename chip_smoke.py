@@ -101,22 +101,38 @@ Phases:
     restore seconds printed); (d) three steps' shard cells queried back to
     the corpus equal the pipeline's source rows.
 12. the LM stack's distributed path (``launch.mesh``, ``distributed``,
-    data-parallel ``launch.train``): (a) the script starts itself twice
-    (``--dp-rank``) as two ranks of a ``gloo`` group sharing the card
-    (NCCL takes one rank a card; gloo reduces CUDA tensors through the
-    host), each running ``train_loop`` on ``cuda:0`` at qwen2-0.5b's
-    published widths and depth for 3 steps of phase 11's batches, one
-    sequence a rank: loss, ``grad_norm`` and ``lr`` within 1e-4 of phase
-    11's first 3 steps, rank 0's parameters within 1e-5 of phase 11's
-    after step 3 (below 2 sum(lr), which any two AdamW runs of 3 steps
-    keep; largest difference printed), both ranks' equal;
-    each rank's CUDA context, step ms, peak memory, and the gradient
-    all_reduce and weight broadcast timed alone; (b) a one-rank ``nccl``
-    group in this process: ``local_mesh(1)`` is a ``cuda`` mesh,
-    ``reshard_tree`` lays qwen2-0.5b's tree (phase 11's weights after
-    step 3) on it bit for bit, ``restore(shardings=)`` of 11c's checkpoint
-    equals the plain restore, and ``flash_decode_combine`` and
-    ``pipeline_stage_step`` equal their one-rank answers.
+    ``launch.train`` on a mesh): (a) the script starts itself twice
+    (``--mesh-rank``) as two ranks of a ``gloo`` group sharing the card
+    (NCCL takes one rank a card; ``gloo`` runs its collectives on CUDA
+    tensors through the host), each running ``train_loop`` on ``cuda:0``
+    on a (2, 1) mesh, ZeRO-3 (each rank holds its data coordinate's block
+    of every ``fsdp`` dimension), at qwen2-0.5b's published widths and 2
+    of its 24 layers (the depth cut to keep the script near 300 s) for 3
+    steps of phase 11's batches, one sequence a rank: loss, ``grad_norm``
+    and ``lr`` within 1e-4 of those of a one-process ``train_loop`` at the
+    same depth, the gathered parameters within 1e-5 of its after step 3
+    (below 2 sum(lr), which any two AdamW runs of 3 steps keep; largest
+    difference printed), both ranks' gathered trees equal and each rank's
+    blocks their slices of it; each rank's held parameter, gradient and
+    moment bytes, peak memory (beside the one-process run's), step ms, its
+    collectives' bytes a step and those collectives replayed alone, after
+    a checked call of each on known values; (b) a one-rank ``nccl`` group in this
+    process: ``local_mesh(1)`` is a ``cuda`` mesh, ``reshard_tree`` lays
+    qwen2-0.5b's tree (phase 11's weights after step 3) on it bit for bit,
+    ``restore(shardings=)`` of 11c's checkpoint equals the plain restore,
+    and ``flash_decode_combine`` and ``pipeline_stage_step`` equal their
+    one-rank answers.
+13. the mesh path (tensor parallelism and ZeRO-3): the script starts
+    itself 4 times as ``gloo`` ranks sharing the card, running
+    ``train_loop(model_parallel=2)`` on a (2, 2) mesh at qwen2-0.5b's
+    published widths and depth (``remat="full"``), phase 11's two
+    sequences, one a data coordinate, for 3 steps: loss, ``grad_norm`` and
+    ``lr`` within 1e-4 of phase 11's; the gathered parameters within 1e-5
+    of phase 11's for all but a 1e-6 share of the entries (phase 11b's
+    rule) and all below 2 sum(lr); each rank's blocks their slices of the
+    gathered tree, exactly; ``replicated_over_model`` empty; rank 0's
+    lineage store (logged by its pipeline on the card) queried back to the
+    corpus, which must launch ``range_join_mask``; printed as 12a.
 
 Phases 3-5 are the port's main path, phase 7 the store's, phase 8's
 ``ops.run_boundaries`` calls the run-boundary kernel's and phase 9 the
@@ -128,7 +144,9 @@ Phase 10's counters are zeroed and read the same way and reported
 is required to launch there.  Phase 11's are reported as
 ``launches_train_path``, and its lineage queries must launch
 ``range_join_mask``; phase 12's as ``launches_dp_path`` (the ranks of 12a
-report theirs; the distributed pieces have no kernel).  The JSON line reports phase 6's and phase 8's numbers
+report theirs; the distributed pieces have no kernel); phase 13's ranks
+count theirs from zero and report them as ``launches_tp_path``, where
+``range_join_mask`` must have launched.  The JSON line reports phase 6's and phase 8's numbers
 on the main paths' own operands.  Any failure raises and exits non-zero.
 Without CUDA, or without the port beside this script, it exits non-zero
 and prints no result.  The last three stdout lines are the card's name and
@@ -240,12 +258,20 @@ RESUME_SEQ = 64
 RESUME_TOL = 1e-6
 # phase 12a: train_loop data-parallel over DP_RANKS processes sharing the card
 # (a gloo group: NCCL takes one rank a card), DP_STEPS steps of phase 11's
-# batches, held to phase 11's steps; the gradient all_reduce timed on its own
-DP_RANKS, DP_STEPS, DP_TOL, DP_ALLREDUCE_REPS, DP_TIMEOUT_S = 2, 3, 1e-4, 2, 600
-# and every parameter within DP_PARAM_TOL of phase 11's: below 2 sum(lr), the
+# batches at DP_LAYERS of qwen2-0.5b's 24 layers (published widths; the depth
+# is cut to keep the script near 300 s, and phase 13 trains all 24), held to a
+# one-process train_loop at that depth
+DP_RANKS, DP_LAYERS, DP_STEPS, DP_TOL, DP_TIMEOUT_S = 2, 2, 3, 1e-4, 600
+# and every parameter within DP_PARAM_TOL of the reference's: below 2 sum(lr), the
 # most that any two AdamW runs of DP_STEPS steps can differ by, so a wrong
 # gradient average or update shows there too
 DP_PARAM_TOL = 1e-5
+# phase 13: train_loop on a (TP_RANKS / TP_MODEL, TP_MODEL) mesh of TP_RANKS
+# processes sharing the card, DP_STEPS steps of phase 11's batches (one
+# sequence a data rank) at all 24 layers, held to phase 11's steps, its
+# parameters by phase 11b's rule (all but PARAM_OUT_SHARE of the entries
+# within DP_PARAM_TOL)
+TP_RANKS, TP_MODEL = 4, 2
 # phase 12b: flash-decode partials on a one-rank NCCL group
 FLASH_SHAPE, FLASH_TOL = (2, 14, 4096, 64), 1e-5
 
@@ -1884,7 +1910,7 @@ def phase_train(torch, core, card, workdir, keep) -> dict:
         if k + 1 == DP_STEPS:
             keep["params"] = [p.detach().to("cpu", copy=True) for p in model.parameters()]
     peak = torch.cuda.max_memory_allocated()
-    keep["steps"] = steps
+    keep.update(steps=steps, peak=peak, layers=cfg.n_layers)
     step_ms = float(np.median([r["ms"] for r in steps[1:]]))
     res = {"arch": cfg.name, "params": sum(p.numel() for p in model.parameters()),
            "batch": b, "seq": s, "plan": plan, "remat": cfg.remat, "step_flops": flops,
@@ -2062,12 +2088,79 @@ def train_resume(torch, cfg_full, workdir) -> dict:
 # --------------------------------------------------------------------------- #
 # The LM stack's distributed pieces (phase 12)
 # --------------------------------------------------------------------------- #
-def dp_worker(rank: int, world: int, workdir: str) -> int:
-    """One rank of phase 12a, run as ``chip_smoke.py --dp-rank R --dp-world
-    W --dp-dir D``: ``train_loop`` on ``cuda:0`` in a ``gloo`` group of W
-    ranks (file rendezvous in D), then the gradient all_reduce alone;
-    writes ``D/dp.rankR.json`` (rank 0 also compares its parameters with
-    phase 11's in ``D/phase11_params.pt``)."""
+def replay_exchange(torch, dist, coords, step_traffic) -> dict:
+    """The step's collectives alone, replayed at their average size a call:
+    ms of each kind (``collectives.traffic``'s), through ``gloo``.  A first
+    call of each kind on known values is checked: each rank's block ``r +
+    1`` gathers to the blocks in group order, a whole of block numbers
+    reduce-scatters to ``size`` times this rank's, and ``r + 1`` all-reduces
+    to ``size (size + 1) / 2``."""
+    groups = {"zero3_gather": coords.data_group, "zero3_reduce_scatter": coords.data_group,
+              "model_all_reduce": coords.model_group, "model_all_gather": coords.model_group}
+    out = {}
+    for kind, (n, b) in sorted(step_traffic.items()):
+        group = groups[kind]
+        size, r = dist.get_world_size(group), dist.get_rank(group)
+        per = max(1, b // max(n, 1) // 4 // size)
+        numbers = torch.arange(1, size + 1, device="cuda:0", dtype=torch.float32)
+        if kind in ("zero3_gather", "model_all_gather"):
+            got = torch.empty(per * size, device="cuda:0")
+            dist.all_gather_into_tensor(got, torch.full((per,), r + 1.0, device="cuda:0"),
+                                        group=group)
+            want = numbers.repeat_interleave(per)
+        elif kind == "zero3_reduce_scatter":
+            got = torch.empty(per, device="cuda:0")
+            dist.reduce_scatter_tensor(got, numbers.repeat_interleave(per), group=group)
+            want = torch.full((per,), size * (r + 1.0), device="cuda:0")
+        else:
+            got = torch.full((per * size,), r + 1.0, device="cuda:0")
+            dist.all_reduce(got, group=group)
+            want = torch.full((per * size,), size * (size + 1) / 2, device="cuda:0")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{kind} over gloo on CUDA tensors gave wrong values")
+        whole = torch.zeros(per * size, device="cuda:0")
+        block = torch.zeros(per, device="cuda:0")
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            if kind in ("zero3_gather", "model_all_gather"):
+                dist.all_gather_into_tensor(whole, block, group=group)
+            elif kind == "zero3_reduce_scatter":
+                dist.reduce_scatter_tensor(block, whole, group=group)
+            else:
+                dist.all_reduce(whole, group=group)
+        torch.cuda.synchronize()
+        out[kind] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def mesh_lineage(store, pipe, steps, dp) -> dict:
+    """Phase 13: each step's data shards queried back through the batch to
+    the corpus, against the shuffle's source rows."""
+    per, s0 = pipe.cfg.global_batch // dp, pipe.cfg.seq_len
+    cells = np.array([[r, c] for r in range(per) for c in range(s0)])
+    t0 = time.perf_counter()
+    for t in steps:
+        rows = pipe.source_rows_for_step(t)
+        for k in range(dp):
+            res = store.prov_query([f"shard_s{t}_k{k}", f"batch_s{t}", "corpus"], cells)
+            if res.cell_set() != {(int(rows[k * per + r]), int(c)) for r, c in cells}:
+                raise AssertionError(f"step {t} shard {k}: lineage differs from the source rows")
+    return {"lineage_query_ms": (time.perf_counter() - t0) * 1e3,
+            "lineage_queries": len(steps) * dp}
+
+
+def mesh_worker(rank: int, world: int, mp: int, layers: int, workdir: str) -> int:
+    """One rank of phase 12a (``mp`` 1) or 13 (``mp`` 2), run as
+    ``chip_smoke.py --mesh-rank R --mesh-world W --mesh-model M
+    --mesh-layers L --mesh-dir D``: ``train_loop`` on ``cuda:0`` at L of
+    qwen2-0.5b's layers on a ``(W / M, M)`` mesh of a ``gloo``
+    group (file rendezvous in D); the bytes it holds and its collectives'
+    bytes a step, then those collectives alone; the gathered parameters,
+    against its own blocks and (rank 0) the one-process run's in
+    ``D/mesh<W>x<M>_want.pt``; in phase 13 rank 0's lineage queries.  Writes
+    ``D/mesh<W>x<M>.rankR.json``."""
     import dataclasses
     import hashlib
 
@@ -2076,91 +2169,142 @@ def dp_worker(rank: int, world: int, workdir: str) -> int:
 
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import SHAPES, get_arch
-    from repro_torch.distributed.collectives import all_reduce_mean, broadcast_tensors
+    from repro_torch.core import DSLog
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.distributed import collectives as col
     from repro_torch.kernels import range_join as rj
     from repro_torch.kernels import run_boundary as rb
+    from repro_torch.launch.mesh import mesh_coords
     from repro_torch.launch.train import train_loop
-    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.models.convert import to_reference, tree_values
+    from repro_torch.models.layers import Init
+    from repro_torch.models.model import LM, replicated_over_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
     if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError("phase 12a runs float32 matmuls at full precision, as phase 11")
-    dist.init_process_group("gloo", init_method=f"file://{workdir}/dp.rendezvous", rank=rank,
+        raise AssertionError("phases 12a and 13 run float32 matmuls at full precision, as 11")
+    tag = f"mesh{world}x{mp}"
+    wrappers = (rj.range_join_mask, rj.range_join_tile_masks, rb.run_boundaries_packed)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/{tag}.rendezvous", rank=rank,
                             world_size=world)
     try:
-        cfg = get_arch(TRAIN_ARCH)
+        cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=layers)
         shape = dataclasses.replace(SHAPES[TRAIN_SHAPE], global_batch=TRAIN_BATCH)
-        marks, metrics = [], []
+        lineage = os.path.join(workdir, f"{tag}_lineage") if mp > 1 else None
+        marks, metrics, traffic = [], [], []
 
         def on_step(step, model, m):
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
             metrics.append(m)
+            traffic.append(dict(col.traffic))
 
         t0 = time.perf_counter()
         torch.zeros(1, device="cuda:0")  # the process's CUDA context, timed apart
         torch.cuda.synchronize()
         ctx_ms = (time.perf_counter() - t0) * 1e3
+        for w in wrappers:  # the path's launches, counted from zero
+            w.launches = 0
+        col.traffic.clear()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model, _ = train_loop(cfg, shape, steps=DP_STEPS, seed=TRAIN_SEED, opt_cfg=AdamWConfig(),
-                              device="cuda:0", log_every=1, on_step=on_step)
+                              device="cuda:0", log_every=1, on_step=on_step, model_parallel=mp,
+                              lineage_dir=lineage)
         peak = torch.cuda.max_memory_allocated()
         step_ms = [(b - a) * 1e3 for a, b in zip([t0] + marks[:-1], marks)]
+        last, before = traffic[-1], traffic[-2]
+        step_traffic = {k: (n - before.get(k, (0, 0))[0], b - before.get(k, (0, 0))[1])
+                        for k, (n, b) in last.items()}
         params = list(model.parameters())
+        coords = mesh_coords(params[0].device_mesh)
+        held = sum(p.to_local().numel() * p.element_size() for p in params)
+        moments = adamw_init(model)  # placed as train_loop's: zeros_like each parameter
+        moment_bytes = sum(t.to_local().numel() * t.element_size()
+                           for t in moments["m"] + moments["v"])
+        del moments
+        exchange_ms = replay_exchange(torch, dist, coords, step_traffic)
+        tree = to_reference(model)  # a collective: every rank gathers
         digest = hashlib.sha256()
-        for p in params:
-            digest.update(p.detach().cpu().numpy().tobytes())
-        grads = [torch.ones_like(p) for p in params]
-        allreduce_ms = []
-        for _ in range(DP_ALLREDUCE_REPS):
-            dist.barrier()
-            torch.cuda.synchronize()
-            a = time.perf_counter()
-            all_reduce_mean(grads, dist.group.WORLD)
-            torch.cuda.synchronize()
-            allreduce_ms.append((time.perf_counter() - a) * 1e3)
-        if any(not torch.equal(g, torch.ones_like(g)) for g in grads[:4]):
-            raise AssertionError("the mean of equal gradients changed them")
-        del grads
-        dist.barrier()
-        torch.cuda.synchronize()
-        a = time.perf_counter()
-        broadcast_tensors(params, src=0)  # train_loop's start from rank 0's weights
-        torch.cuda.synchronize()
-        broadcast_ms = (time.perf_counter() - a) * 1e3
-        out = {"rank": rank, "metrics": metrics, "step_ms": step_ms, "peak": peak,
-               "ctx_ms": ctx_ms, "broadcast_ms": broadcast_ms,
-               "allreduce_ms": allreduce_ms, "grad_bytes": 4 * sum(p.numel() for p in params),
-               "digest": digest.hexdigest(),
-               "launches": rj.range_join_mask.launches + rj.range_join_tile_masks.launches
-               + rb.run_boundaries_packed.launches}
+        for v in leaf_pairs(tree, tree):
+            digest.update(v[0].tobytes())
+        for (name, p), v in zip(model.named_parameters(), tree_values(model, tree)):
+            if not torch.equal(p.to_local().detach().cpu(), v):
+                raise AssertionError(f"rank {rank}: its block of {name} is not its slice of "
+                                     "the gathered tree")
+        out = {"rank": rank, "coord": [coords.data, coords.model], "metrics": metrics,
+               "step_ms": step_ms, "peak": peak, "ctx_ms": ctx_ms, "param_bytes": held,
+               "grad_bytes": held, "moment_bytes": moment_bytes, "step_traffic": step_traffic,
+               "exchange_ms": exchange_ms, "digest": digest.hexdigest(),
+               "replicated_over_model": replicated_over_model(model, cfg)}
         if rank == 0:
-            want = torch.load(os.path.join(workdir, "phase11_params.pt"), mmap=True)
-            err, worst = 0.0, ""
-            for (name, p), w in zip(model.named_parameters(), want):
-                d = float((p.detach() - w.to(p.device)).abs().max())
-                if d > err:
-                    err, worst = d, name
-            out["param_max_abs"], out["param_worst"] = err, worst
+            want = torch.load(os.path.join(workdir, f"{tag}_want.pt"), mmap=True)
+            meta = LM(Init(None, "meta"), cfg)
+            err, worst, n_out, n_all = 0.0, "", 0, 0
+            for (name, _), got, w in zip(meta.named_parameters(), tree_values(meta, tree), want):
+                diff = (got - w).abs()
+                n_out += int((diff > DP_PARAM_TOL).sum())
+                n_all += diff.numel()
+                if float(diff.max()) > err:
+                    err, worst = float(diff.max()), name
+            out.update(param_max_abs=err, param_worst=worst, param_beyond=n_out, param_all=n_all)
+            if lineage is not None:
+                pipe = TokenPipeline(PipelineConfig(cfg.vocab, shape.seq_len, shape.global_batch,
+                                                    TRAIN_SEED))
+                out.update(mesh_lineage(DSLog.load(lineage, device="cuda:0"), pipe,
+                                        range(DP_STEPS), coords.dp))
+        out["launches"] = {w.__name__: w.launches for w in wrappers}
         dist.barrier()
     finally:
         dist.destroy_process_group()
-    with open(os.path.join(workdir, f"dp.rank{rank}.json"), "w") as f:
+    with open(os.path.join(workdir, f"{tag}.rank{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
 
 
-def phase_dp(torch, card, workdir, keep) -> dict:
-    """Phase 12a: ``train_loop`` data-parallel on DP_RANKS processes sharing
-    the card (module doc), held to phase 11's first DP_STEPS steps."""
-    torch.save(keep["params"], os.path.join(workdir, "phase11_params.pt"))
+def mesh_reference(torch, layers) -> dict:
+    """Phase 12a's reference: ``train_loop`` in this process, on the card, at
+    ``layers`` of qwen2-0.5b's layers for DP_STEPS steps of phase 11's
+    batches: the steps' metrics, the parameters after them on the host and
+    the peak memory, as phase 11 keeps them."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=layers)
+    shape = dataclasses.replace(SHAPES[TRAIN_SHAPE], global_batch=TRAIN_BATCH)
+    steps = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(sys.stderr):
+        model, _ = train_loop(cfg, shape, steps=DP_STEPS, seed=TRAIN_SEED, opt_cfg=AdamWConfig(),
+                              device="cuda:0", on_step=lambda step, model, m: steps.append(m))
+    want = {"steps": steps, "peak": torch.cuda.max_memory_allocated(), "layers": layers,
+            "params": [p.detach().to("cpu", copy=True) for p in model.parameters()]}
+    del model
+    torch.cuda.empty_cache()
+    return want
+
+
+def phase_mesh(torch, card, workdir, want, world, mp, name) -> dict:
+    """Phase 12a (``mp`` 1: ZeRO-3 over 2 data ranks) or 13 (``mp`` 2: a
+    (2, 2) mesh): ``train_loop`` on ``world`` processes sharing the card
+    (module doc) at the depth of ``want``, a one-process run
+    (``mesh_reference``'s, or phase 11's ``keep``), held to its first
+    DP_STEPS steps."""
+    layers = want["layers"]
+    torch.save(want["params"], os.path.join(workdir, f"mesh{world}x{mp}_want.pt"))
     torch.cuda.empty_cache()
     parent_mem = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", str(r),
-                               "--dp-world", str(DP_RANKS), "--dp-dir", workdir],
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r),
+                               "--mesh-world", str(world), "--mesh-model", str(mp),
+                               "--mesh-layers", str(layers), "--mesh-dir", workdir],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(DP_RANKS)]
+             for r in range(world)]
     outs = []
     try:
         for p in procs:
@@ -2171,55 +2315,79 @@ def phase_dp(torch, card, workdir, keep) -> dict:
     wall = time.perf_counter() - t0
     for r, (p, out) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            raise AssertionError(f"phase 12a rank {r} exited {p.returncode}:\n{out[-3000:]}")
+            raise AssertionError(f"phase {name} rank {r} exited {p.returncode}:\n{out[-3000:]}")
     ranks = []
-    for r in range(DP_RANKS):
-        with open(os.path.join(workdir, f"dp.rank{r}.json")) as f:
+    for r in range(world):
+        with open(os.path.join(workdir, f"mesh{world}x{mp}.rank{r}.json")) as f:
             ranks.append(json.load(f))
     for line in outs[0].splitlines():
-        if line.startswith("step "):
+        if line.startswith(("step ", "mesh ")):
             log(f"  rank 0: {line}")
-    want = keep["steps"][:DP_STEPS]
+    ref_peak, want = want["peak"], want["steps"][:DP_STEPS]
     err = 0.0
     for rk in ranks:
         if len(rk["metrics"]) != DP_STEPS or rk["digest"] != ranks[0]["digest"]:
-            raise AssertionError(f"phase 12a: rank {rk['rank']} ran {len(rk['metrics'])} steps "
-                                 "or its parameters differ from rank 0's")
+            raise AssertionError(f"phase {name}: rank {rk['rank']} ran {len(rk['metrics'])} steps "
+                                 "or its gathered parameters differ from rank 0's")
         for got, w in zip(rk["metrics"], want):
             for key in ("loss", "grad_norm", "lr"):
                 err = max(err, abs(got[key] - w[key]))
     if err > DP_TOL:
-        raise AssertionError(f"phase 12a: loss/grad_norm/lr differ from phase 11's by {err} "
-                             f"(atol {DP_TOL})")
+        raise AssertionError(f"phase {name}: loss/grad_norm/lr differ from the one-process "
+                             f"run's by {err} (atol {DP_TOL})")
     # AdamW moves each entry by about lr a step whatever its gradient: a limit
     # at or above adamw_bound could not fail
     adamw_bound = 2 * sum(w["lr"] for w in want)
     if DP_PARAM_TOL >= adamw_bound:
-        raise AssertionError(f"phase 12a: DP_PARAM_TOL {DP_PARAM_TOL} is not below 2 sum(lr) "
+        raise AssertionError(f"phase {name}: DP_PARAM_TOL {DP_PARAM_TOL} is not below 2 sum(lr) "
                              f"= {adamw_bound}")
-    if ranks[0]["param_max_abs"] > DP_PARAM_TOL:
-        raise AssertionError(f"phase 12a: parameters differ from phase 11's by "
-                             f"{ranks[0]['param_max_abs']} (atol {DP_PARAM_TOL})")
-    res = {"ranks": DP_RANKS, "steps": DP_STEPS, "wall_s": wall, "parent_cuda_mem": parent_mem,
-           "metrics_max_abs": err, "param_max_abs": ranks[0]["param_max_abs"],
-           "param_worst": ranks[0]["param_worst"], "adamw_bound": adamw_bound,
-           "grad_bytes": ranks[0]["grad_bytes"],
-           "launches": sum(rk["launches"] for rk in ranks),
-           "per_rank": [{k: rk[k] for k in ("step_ms", "peak", "ctx_ms", "broadcast_ms",
-                                            "allreduce_ms")} for rk in ranks]}
+    r0 = ranks[0]
+    # 12a: every entry within DP_PARAM_TOL; 13 (phase 11b's rule): all but a
+    # PARAM_OUT_SHARE of them, whose gradients cancel, every one below 2 sum(lr)
+    share = PARAM_OUT_SHARE if mp > 1 else 0.0
+    if r0["param_beyond"] > share * r0["param_all"] or r0["param_max_abs"] >= adamw_bound:
+        raise AssertionError(f"phase {name}: parameters differ from the one-process run's by "
+                             f"{r0['param_max_abs']} ({r0['param_worst']}); "
+                             f"{r0['param_beyond']} of {r0['param_all']} entries beyond "
+                             f"{DP_PARAM_TOL}")
+    if mp > 1:
+        if any(rk["replicated_over_model"] for rk in ranks):
+            raise AssertionError(f"phase {name}: layers computed whole on every model rank: "
+                                 f"{ranks[0]['replicated_over_model']}")
+        if r0["launches"]["range_join_mask"] <= 0:
+            raise AssertionError(f"phase {name}: rank 0's lineage queries launched no mask")
+    launches = {k: sum(rk["launches"][k] for rk in ranks) for k in r0["launches"]}
+    res = {"ranks": world, "model_parallel": mp, "layers": layers, "steps": DP_STEPS,
+           "wall_s": wall, "parent_cuda_mem": parent_mem, "one_process_peak": ref_peak,
+           "metrics_max_abs": err,
+           "param_max_abs": r0["param_max_abs"], "param_worst": r0["param_worst"],
+           "param_beyond_tol": r0["param_beyond"], "adamw_bound": adamw_bound,
+           "launches": launches, "replicated_over_model": r0["replicated_over_model"],
+           **{k: r0[k] for k in ("lineage_query_ms", "lineage_queries") if k in r0},
+           "per_rank": [{k: rk[k] for k in ("coord", "step_ms", "peak", "ctx_ms", "param_bytes",
+                                            "grad_bytes", "moment_bytes", "step_traffic",
+                                            "exchange_ms")} for rk in ranks]}
     for rk in ranks:
         ms = rk["step_ms"]
-        log(f"  rank {rk['rank']}: CUDA context {rk['ctx_ms']:.1f}ms; step 1 (with init_model and "
-            f"the broadcast) {ms[0]:.1f}ms, steps 2-{DP_STEPS} "
-            f"{', '.join(f'{x:.1f}' for x in ms[1:])}ms; alone, staged through the host by "
-            f"gloo ({rk['grad_bytes']}B): gradient all_reduce "
-            f"{', '.join(f'{x:.1f}' for x in rk['allreduce_ms'])}ms, weight broadcast "
-            f"{rk['broadcast_ms']:.1f}ms; peak {rk['peak']}B")
-    log(f"  {card}: {DP_RANKS} ranks x 1 sequence of {TRAIN_SHAPE}, {DP_STEPS} steps in "
-        f"{wall:.2f}s (processes included); loss/grad_norm/lr max |diff| against phase 11 "
-        f"{err:.3e} (atol {DP_TOL}); parameters max |diff| {res['param_max_abs']:.3e} in "
-        f"{res['param_worst']} (atol {DP_PARAM_TOL}, below 2 sum(lr) = {adamw_bound:.3e}); "
-        f"parent holds {parent_mem}B")
+        moved = ", ".join(f"{k} {n} calls {b}B" for k, (n, b) in sorted(rk["step_traffic"].items()))
+        alone = ", ".join(f"{k} {v:.1f}ms" for k, v in sorted(rk["exchange_ms"].items()))
+        log(f"  rank {rk['rank']} at (data, model) {tuple(rk['coord'])}: holds parameters "
+            f"{rk['param_bytes']}B, gradients {rk['grad_bytes']}B, moments {rk['moment_bytes']}B; "
+            f"peak {rk['peak']}B (one process at this depth: {ref_peak}B; PR 18's replicated "
+            f"data-parallel rank at 24 layers: 13,868,465,152B); CUDA "
+            f"context {rk['ctx_ms']:.1f}ms; step 1 (with init_model and placement) {ms[0]:.1f}ms, "
+            f"steps 2-{DP_STEPS} {', '.join(f'{x:.1f}' for x in ms[1:])}ms; a step's exchange "
+            f"{moved}; alone, staged through the host by gloo: {alone}")
+    log(f"  {card}: {world} ranks on a ({world // mp}, {mp}) mesh, {layers} layers, 1 "
+        f"sequence of {TRAIN_SHAPE} a data rank, {DP_STEPS} steps in {wall:.2f}s (processes "
+        f"included); loss/grad_norm/lr max |diff| against one process at this depth {err:.3e} "
+        f"(atol {DP_TOL}); gathered parameters max |diff| "
+        f"{res['param_max_abs']:.3e} in {res['param_worst']}, {res['param_beyond_tol']} of "
+        f"{r0['param_all']} entries beyond {DP_PARAM_TOL} (at most a share of {share}; below 2 "
+        f"sum(lr) = {adamw_bound:.3e}); computed whole on every model rank: "
+        f"{res['replicated_over_model'] or 'none'}; launches {launches}"
+        + (f"; rank 0's {res['lineage_queries']} lineage queries {res['lineage_query_ms']:.1f}ms"
+           if "lineage_queries" in res else "") + f"; parent holds {parent_mem}B")
     return res
 
 
@@ -2588,15 +2756,18 @@ def main(argv=None) -> int:
         help="csrc directory of an earlier commit: its kernels are built too and "
              "timed beside these in the same call (ms_before)",
     )
-    parser.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--dp-world", type=int, default=DP_RANKS, help=argparse.SUPPRESS)
-    parser.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-world", type=int, default=DP_RANKS, help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-model", type=int, default=1, help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-layers", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    if args.dp_rank is not None:  # one rank of phase 12a
-        return dp_worker(args.dp_rank, args.dp_world, args.dp_dir)
+    if args.mesh_rank is not None:  # one rank of phase 12a or 13
+        return mesh_worker(args.mesh_rank, args.mesh_world, args.mesh_model, args.mesh_layers,
+                           args.mesh_dir)
     sys.path.insert(0, str(ROOT / "src"))
     try:
         import repro_torch.core as core
@@ -2731,13 +2902,23 @@ def main(argv=None) -> int:
         # 12a report theirs, 12b runs here, counted from zero
         for w in wrappers.values():
             w.launches = 0
-        dp = run_phase(torch, wrappers, "12a data-parallel training",
-                       lambda: phase_dp(torch, card, workdir, keep))
+        dp = run_phase(torch, wrappers, "12a data-parallel training under ZeRO-3",
+                       lambda: phase_mesh(torch, card, workdir, mesh_reference(torch, DP_LAYERS),
+                                          DP_RANKS, 1, "12a"))
         dp["nccl"] = run_phase(torch, wrappers, "12b one-rank nccl group",
                                lambda: phase_nccl(torch, card, workdir, keep))
+        dp_launches = {k: w.launches for k, w in wrappers.items()}
+        log(f"distributed-path launches: {dp_launches} (ranks of 12a: {dp['launches']})")
+
+        # the mesh path, phase 13: its ranks count their launches from zero;
+        # rank 0's lineage queries must launch range_join_mask
+        for w in wrappers.values():
+            w.launches = 0
+        tp = run_phase(torch, wrappers, "13 tensor-parallel and ZeRO-3 training on a (2, 2) mesh",
+                       lambda: phase_mesh(torch, card, workdir, keep, TP_RANKS, TP_MODEL, "13"))
+        tp_launches = tp["launches"]
+        log(f"mesh-path launches (its ranks): {tp_launches}")
     keep.clear()
-    dp_launches = {k: w.launches for k, w in wrappers.items()}
-    log(f"distributed-path launches: {dp_launches} (ranks of 12a: {dp['launches']})")
 
     kernels = []
     for name, rec in main_recs.items():
@@ -2763,6 +2944,7 @@ def main(argv=None) -> int:
             "launches_serve_path": serve_launches[name],
             "launches_train_path": train_launches[name],
             "launches_dp_path": dp_launches[name],
+            "launches_tp_path": tp_launches[name],
             **({"ops_ms": rec["ops_ms"]} if "ops_ms" in rec else {}),
         })
     log(f"store: {json.dumps(store)}")
@@ -2770,6 +2952,7 @@ def main(argv=None) -> int:
     log(f"serving: {json.dumps(serving)}")
     log(f"training: {json.dumps(training)}")
     log(f"distributed: {json.dumps(dp)}")
+    log(f"mesh: {json.dumps(tp)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -16,8 +16,9 @@ or numbers.  ``restore(device=...)`` returns tensors on that device, and
 
 Under ``torch.distributed`` every rank calls ``save`` and the manager
 decides: only global rank 0 writes.  A ``DTensor`` leaf is gathered with
-``full_tensor()``, a collective, on every rank; other leaves are read on
-rank 0 alone.  The caller puts a barrier between a save and a restore on
+``collectives.gather_full``, a collective, on every rank (``torch.distributed``'s
+own all-gathers, which a ``gloo`` group runs on CUDA tensors too); other
+leaves are read on rank 0 alone.  The caller puts a barrier between a save and a restore on
 other ranks.  ``restore`` reads
 the files on every rank that calls it.
 
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..distributed.collectives import gather_full
 from ..kernels.ops import resolve_device
 
 try:
@@ -109,8 +111,7 @@ def _unflatten(flat: dict):
 def _to_host(v) -> tuple[str, np.ndarray]:
     """(dtype string, host array whose bytes are the leaf's) of a leaf."""
     if isinstance(v, torch.Tensor):
-        if hasattr(v, "full_tensor"):  # a DTensor: gathered from its mesh
-            v = v.full_tensor()
+        v = gather_full(v)  # a DTensor: gathered from its mesh
         t = v.detach().to("cpu", copy=True).contiguous()
         if t.dtype == torch.bfloat16:
             return _BF16, t.view(torch.int16).numpy().reshape(t.shape)
@@ -139,8 +140,7 @@ class CheckpointManager:
         flat = _flatten(tree)
         if not _writes():
             for v in flat.values():
-                if hasattr(v, "full_tensor"):  # every rank joins a DTensor's gather
-                    v.full_tensor()
+                gather_full(v)  # every rank joins a DTensor's gather
             return self._dir(step)
         host = {k: _to_host(v) for k, v in flat.items()}
         if self.async_save:

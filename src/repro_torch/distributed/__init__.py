@@ -1,8 +1,9 @@
 """Distribution layer of the port (``repro.distributed``): logical-axis
-sharding rules resolved against a ``DeviceMesh`` (``sharding``), explicit
-collectives over a process group (``collectives``), and ``reshard_tree``
-and the straggler watchdog (``elastic``).  Meshes are made in
-``launch.mesh``; ``launch.train`` trains data-parallel over a group."""
+sharding rules resolved against a ``DeviceMesh`` (``sharding``), explicit collectives over a process group, the
+differentiable ones of the mesh's training step among them
+(``collectives``), and ``reshard_tree`` and the straggler watchdog
+(``elastic``).  Meshes are made in ``launch.mesh``; ``launch.train``
+trains on a ``("data", "model")`` mesh over a group."""
 
 from .collectives import (  # noqa: F401
     flash_decode_combine,

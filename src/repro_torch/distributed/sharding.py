@@ -28,6 +28,10 @@ redistributed to the placements of the reference's spec for that kind
 and shape (``hint_spec``).  ``DTensor`` splits a dimension that its axes
 do not divide as ``torch.chunk`` does, into the blocks JAX pads to
 (``attn_heads="tp_uneven"``).
+
+``local_tensor`` and ``local_block`` read a ``DTensor``'s block on this
+rank (``models.convert.place_model`` lays a model's parameters on a mesh
+with ``param_sharding``'s placements).
 """
 
 from __future__ import annotations
@@ -44,6 +48,9 @@ __all__ = [
     "set_activation_mesh",
     "hint",
     "hint_spec",
+    "is_placed",
+    "local_tensor",
+    "local_block",
 ]
 
 
@@ -318,3 +325,28 @@ def cache_sharding(mesh, cache_like, n_kv_heads: int, batch: int,
         return NamedSharding(mesh, (None,) * nd)
 
     return _map(spec_for_path, cache_like)
+
+
+def is_placed(t) -> bool:
+    """Whether ``t`` is a ``DTensor`` (laid on a mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def local_tensor(t):
+    """This rank's block of a ``DTensor`` (outside autograd, its own
+    storage: writing it writes the ``DTensor``); a plain tensor itself."""
+    return t.to_local() if is_placed(t) else t
+
+
+def local_block(dt, full):
+    """The slice of ``full`` (the whole value, a tensor or array) that
+    ``dt``'s placements give this rank's mesh coordinate."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    if tuple(full.shape) != tuple(dt.shape):
+        raise ValueError(f"whole value {tuple(full.shape)} for a DTensor of {tuple(dt.shape)}")
+    shape, offset = compute_local_shape_and_global_offset(dt.shape, dt.device_mesh,
+                                                          dt.placements)
+    return full[tuple(slice(o, o + n) for o, n in zip(offset, shape))]

@@ -15,18 +15,25 @@ touches no device and no group.
 variable) and raises when ``LOCAL_RANK`` is unset: no rank picks card 0
 behind the caller's back.  An explicit ``cuda:<i>`` is taken as given,
 so several ranks may share one card.
+
+``mesh_coords`` gives a rank its ``(data, model)`` coordinate on a
+``("data", "model")`` mesh and the mesh's data and model process groups:
+the ranks of its row and of its column, in the mesh's own rank order
+(``local_mesh(m)`` puts global rank ``r`` at ``(r // m, r % m)``).
 """
 
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
 from ..kernels.ops import resolve_device
 
-__all__ = ["make_production_mesh", "make_mesh", "local_mesh", "rank_device"]
+__all__ = ["make_production_mesh", "make_mesh", "local_mesh", "rank_device", "MeshCoords",
+           "mesh_coords"]
 
 
 def rank_device(device="cuda") -> torch.device:
@@ -88,3 +95,25 @@ def local_mesh(model_parallel: int = 1, device="cuda"):
     if model_parallel < 1 or n % model_parallel:
         raise ValueError(f"model_parallel={model_parallel} does not divide {n} rank(s)")
     return make_mesh((n // model_parallel, model_parallel), ("data", "model"), device)
+
+
+class MeshCoords(NamedTuple):
+    """A rank's place on a ``("data", "model")`` mesh."""
+
+    data: int  # its data coordinate: the block of the global batch it takes
+    model: int  # its model coordinate
+    dp: int  # the mesh's data size
+    mp: int  # the mesh's model size
+    data_group: object  # the ranks at its model coordinate, by data coordinate
+    model_group: object  # the ranks at its data coordinate, by model coordinate
+
+
+def mesh_coords(mesh) -> MeshCoords:
+    """This rank's :class:`MeshCoords` on ``mesh``, whose axes must be
+    ``("data", "model")``."""
+    if tuple(mesh.mesh_dim_names) != ("data", "model"):
+        raise ValueError(f"mesh axes {mesh.mesh_dim_names}, not ('data', 'model')")
+    d, m = mesh.get_coordinate()
+    dp, mp = mesh.mesh.shape
+    return MeshCoords(int(d), int(m), int(dp), int(mp), mesh.get_group("data"),
+                      mesh.get_group("model"))

@@ -6,6 +6,23 @@ allocated).  ``make_train_step`` returns a function that takes
 ``lm_loss``'s gradient and applies AdamW to the model's parameters in
 place.  The abstract model, cache and optimizer states of the reference
 serve its dry run, and come with the port's.
+
+``make_train_step(..., mesh=)`` is the step on a ``("data", "model")``
+mesh, the reference's jitted step under GSPMD: the model's parameters are
+placed on it (``models.convert.place_model``) and each rank passes
+its data coordinate's block of the global batch.  The layers compute on
+the blocks with explicit collectives (``models.layers``): a ZeRO-3
+gather's backward hands each parameter split over the data ranks its
+gradient reduce-scattered and averaged over them; the gradients of the
+parameters the data ranks replicate are averaged over the data group
+after the backward (not over the world: the model ranks already agree);
+nothing is reduced twice.  AdamW runs on the blocks, its clip on the
+global norm.  Where the model axis cuts a head or the SSM's fused
+segments, a layer gathers its weights over the model ranks and computes
+whole there (``models.model.replicated_over_model`` names them).  The
+numbers are the one-device step's on the global batch up to float order;
+for an MoE, its ``n_micro = dp`` step (each data rank's router sees its
+own block).
 """
 
 from __future__ import annotations
@@ -14,6 +31,7 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeConfig
 from ..distributed.collectives import all_reduce_mean
+from ..distributed.sharding import local_tensor
 from ..models.model import decode_step, lm_loss, prefill
 from ..optim.adamw import AdamWConfig, adamw_update
 
@@ -71,7 +89,14 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
     return {"tokens": spec((b, s))}
 
 
-def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, plan: dict, group=None):
+def _data_split(p) -> bool:
+    """Whether a placed parameter is split over the ``data`` mesh axis."""
+    mesh = p.device_mesh
+    i = mesh.mesh_dim_names.index("data")
+    return p.placements[i].is_shard() and mesh.size(i) > 1
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, plan: dict, mesh=None):
     """The full update step ``train_step(model, opt_state, batch)`` →
     ``(model, opt_state, metrics)``, the parameters updated in place.
 
@@ -81,14 +106,16 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, plan: dict, group=Non
     reference, the reported ``loss`` is ``ce + aux_weight * aux`` with one
     microbatch and the mean ``ce`` with several (the two differ for MoE).
 
-    With a process ``group`` (data parallelism: each rank's ``batch`` is
-    its block of the global batch), the gradients are averaged over the
-    ranks after the accumulation (``collectives.all_reduce_mean``, in flat
-    float32 buckets), then every rank takes the same AdamW step; the
-    reported ``loss``, ``ce`` and ``aux`` are the means over the ranks of
-    each rank's.
+    With a ``mesh`` (module doc) the model is placed on it and ``batch`` is
+    this rank's data block; the gradients of the parameters replicated
+    over the data ranks are averaged over the data group (in flat float32
+    buckets, ``collectives.all_reduce_mean``), and the reported ``loss``,
+    ``ce`` and ``aux`` are the means over the data ranks of each rank's.
     """
     n_micro = int(plan.get("n_micro", 1))
+    data_group = None
+    if mesh is not None and mesh.size(mesh.mesh_dim_names.index("data")) > 1:
+        data_group = mesh.get_group("data")
 
     def grads_of(model, params, batch):
         total, (ce, aux) = lm_loss(model, batch, cfg, mode=plan["mode"], chunk=plan["chunk"])
@@ -102,23 +129,27 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, plan: dict, group=Non
         else:
             micro = {k: v.reshape((n_micro, v.shape[0] // n_micro) + tuple(v.shape[1:]))
                      for k, v in batch.items()}
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for p in params]
-            dev = params[0].device
+            grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+            dev = local_tensor(params[0]).device
             ce = torch.zeros((), dtype=torch.float32, device=dev)
             aux = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(n_micro):
                 _, ce_i, aux_i, g = grads_of(model, params, {k: v[i] for k, v in micro.items()})
                 for acc, gi in zip(grads, g):
-                    acc.add_(gi.float())
+                    local_tensor(acc).add_(local_tensor(gi).float())
                 ce, aux = ce + ce_i, aux + aux_i
                 del g
             grads = [g / n_micro for g in grads]
             ce, aux = ce / n_micro, aux / n_micro
             loss = ce
-        if group is not None:
-            grads = all_reduce_mean(grads, group)
-            loss, ce, aux = all_reduce_mean([torch.stack([loss, ce, aux]).float()], group)[0]
+        if data_group is not None:
+            with torch.no_grad():
+                blocks = [local_tensor(g) for p, g in zip(params, grads) if not _data_split(p)]
+                for g, mean in zip(blocks, all_reduce_mean(blocks, data_group)):
+                    if mean is not g:
+                        g.copy_(mean)
+            loss, ce, aux = all_reduce_mean([torch.stack([loss, ce, aux]).float()],
+                                            data_group)[0]
         model, opt_state, metrics = adamw_update(model, grads, opt_state, opt_cfg)
         return model, opt_state, {**metrics, "loss": loss, "ce": ce, "aux": aux}
 

@@ -11,21 +11,35 @@ from the other's.  ``examples/train_lm_torch.py`` drives it, and so does
 
 Without an initialised ``torch.distributed`` group it trains on one
 device, with no mesh.  In a group of W ranks (``torchrun``; ``main``
-starts the group from its environment) it trains data-parallel, one
-process a rank: rank k takes block k of each global batch
-(``TokenPipeline(data_shards=W, shard_id=k)``), so the ranks' batches
-together are the global batch; every rank starts from rank 0's weights
-(broadcast), averages the gradients with the others after backward, and
-takes the same AdamW step (``steps.make_train_step(group=...)``).  Only
-rank 0 logs lineage (its pipeline logs every shard's slice) and writes
-checkpoints, which every rank restores, at any W: the pipeline's state is
-its step.  The reference at ``dp > 1`` trains on rank 0's block alone
-(``ROADMAP.md`` §3, item 6); the port does not copy that.  Tensor
-parallelism (``model_parallel > 1``) waits for the port's tensor-parallel
-slice, and raises.
+starts the group from its environment) it trains on the reference's
+``local_mesh(model_parallel)``, a ``("data", "model")`` mesh of
+``W / model_parallel`` by ``model_parallel`` ranks, one process a rank
+(``launch.mesh.mesh_coords``).  Every rank makes the same seeded
+``init_model`` and keeps the block of each parameter that
+``param_sharding`` gives its mesh coordinate (``models.convert.place_model``;
+the same tree restores a checkpoint): ``fsdp`` dimensions split over the
+data ranks (ZeRO-3, at every ``dp > 1``), ``tp`` dimensions over the
+model ranks, an axis that does not divide a dimension demoted to
+replication; both AdamW moments follow.  The step
+(``steps.make_train_step(mesh=...)``) computes tensor-parallel over the
+model ranks and averages the gradients over the data ranks; where the
+model axis cuts a head or the SSM's fused segments, a layer computes whole
+on every model rank, and ``models.replicated_over_model`` names its
+weights (rank 0 prints them; none for qwen2-0.5b at ``(2, 2)``).  The
+ranks of one data coordinate take the same block of each global batch
+(``TokenPipeline(data_shards=dp, shard_id=data coordinate)``), so the data
+blocks together are the global batch and the numbers are the one-device
+step's (an MoE's with ``n_micro = dp``).  Only global rank 0 logs lineage
+(its pipeline logs every shard's slice).  Checkpoints are gathered to the
+reference's tree, which rank 0 writes; a resume restores each rank's
+blocks (``restore(shardings=...)``), at any mesh: the pipeline's state is
+its step.  The reference at ``dp > 1`` trains on shard 0's block alone
+(``ROADMAP.md`` §3, item 6); the port does not copy that.
 
-An encoder's random ``frames`` come from a ``torch.Generator`` seeded with
-the step, so they differ from the reference's JAX RNG.
+An encoder's random ``frames``, and a VLM's random ``patch_embeds``, come
+from a ``torch.Generator`` seeded with the step, so they differ from the
+reference's JAX RNG; the reference's ``train_loop`` passes a VLM no patch
+embeddings at all (``ROADMAP.md`` §3, item 7).
 """
 
 from __future__ import annotations
@@ -42,18 +56,32 @@ from ..configs import get_arch
 from ..configs.base import ShapeConfig
 from ..core.catalog import DSLog
 from ..data.pipeline import PipelineConfig, TokenPipeline
-from ..distributed.collectives import broadcast_tensors
 from ..distributed.elastic import StepWatchdog
-from ..models.convert import copy_tree, to_reference, tree_values
-from ..models.model import init_model
+from ..distributed.sharding import local_tensor, param_sharding
+from ..models.convert import (copy_tree, place_model, shape_tree, spec_tree, to_reference,
+                              tree_values)
+from ..models.model import init_model, replicated_over_model
 from ..optim.adamw import AdamWConfig, adamw_init
-from .mesh import rank_device
+from .mesh import local_mesh, mesh_coords, rank_device
 from .steps import attn_plan, make_train_step
 
 __all__ = ["train_loop", "main"]
 
 
+def _moments(model, tree) -> list:
+    """Float32 tensors placed like ``model``'s parameters, holding
+    ``tree``'s values (each rank its blocks)."""
+    out = []
+    with torch.no_grad():
+        for p, value in zip(model.parameters(), tree_values(model, tree)):
+            t = torch.zeros_like(p, dtype=torch.float32)
+            local_tensor(t).copy_(value)
+            out.append(t)
+    return out
+
+
 def _checkpoint_tree(model, opt_state) -> dict:
+    """The reference's checkpoint tree; on a mesh every rank gathers it."""
     return {
         "params": to_reference(model),
         "opt": {"m": to_reference(model, opt_state["m"]),
@@ -87,39 +115,46 @@ def train_loop(
     rank = dist.get_rank() if group is not None else 0
     if model_parallel < 1 or world % model_parallel:
         raise ValueError(f"model_parallel={model_parallel} does not divide {world} rank(s)")
-    if model_parallel != 1:
-        raise NotImplementedError(
-            "tensor parallelism (model_parallel > 1) comes with the port's tensor-parallel slice")
     dev = rank_device(device)
     if group is not None and dev.type == "cpu" and dist.get_backend() == "nccl":
         raise ValueError("an nccl group reduces CUDA tensors: pass this rank's cuda device")
-    dp = world
+    mesh = local_mesh(model_parallel, device=dev) if world > 1 else None
+    coords = mesh_coords(mesh) if mesh is not None else None
+    data, dp = (coords.data, coords.dp) if coords is not None else (0, 1)
     opt_cfg = opt_cfg or AdamWConfig(total_steps=steps)
     plan = attn_plan(cfg, shape, dp_total=dp)
 
     model = init_model(cfg, seed, device=dev)
-    if dp > 1:
-        broadcast_tensors(model.parameters(), src=0)
+    sh = None
+    if mesh is not None:  # every rank made the same weights; each keeps its blocks
+        sh = param_sharding(mesh, spec_tree(model), shapes_tree=shape_tree(model))
+        place_model(model, sh)
+        replicated = replicated_over_model(model, cfg)
+        if rank == 0:
+            print(f"mesh {tuple(mesh.mesh.shape)} (data, model); computed whole on every model "
+                  f"rank: {replicated or 'none'}", flush=True)
     opt_state = adamw_init(model)
 
     dslog = DSLog(root=lineage_dir, device=dev) if lineage_dir and rank == 0 else None
     pipe = TokenPipeline(
         PipelineConfig(cfg.vocab, shape.seq_len, shape.global_batch, seed),
         data_shards=dp,
-        shard_id=rank,
+        shard_id=data,
         dslog=dslog,
     )
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
 
     start_step = 0
     if mgr is not None and mgr.latest_step() is not None:
-        restored, extra = mgr.restore(device=dev)
+        # on a mesh each rank keeps its blocks of the gathered tree
+        shardings = {"params": sh, "opt": {"m": sh, "v": sh}} if sh is not None else None
+        restored, extra = mgr.restore(device=dev, shardings=shardings)
         if restored is not None:
             copy_tree(model, restored["params"])
             opt = restored["opt"]
             opt_state = {
-                "m": [t.float().clone() for t in tree_values(model, opt["m"])],
-                "v": [t.float().clone() for t in tree_values(model, opt["v"])],
+                "m": _moments(model, opt["m"]),
+                "v": _moments(model, opt["v"]),
                 "step": torch.as_tensor(opt.get("step", extra["step"]), dtype=torch.int32,
                                         device=dev),
             }
@@ -128,7 +163,7 @@ def train_loop(
             if rank == 0:
                 print(f"resumed from step {start_step - 1}")
 
-    step_fn = make_train_step(cfg, opt_cfg, plan, group=group if dp > 1 else None)
+    step_fn = make_train_step(cfg, opt_cfg, plan, mesh=mesh)
     # the watchdog runs each step, and so the step's collectives, on its own
     # thread: one step at a time, so every rank issues them in the same order
     watchdog = StepWatchdog()
@@ -138,12 +173,20 @@ def train_loop(
         batch_np = pipe.next_batch()
         tokens = torch.from_numpy(batch_np["tokens"]).to(dev)
         batch = {"tokens": tokens}
+        mine = slice(data * per, (data + 1) * per)  # this data coordinate's block
         if cfg.encoder_only:
             gen = torch.Generator(device=dev)
             gen.manual_seed(step)
             frames = torch.randn((shape.global_batch, shape.seq_len, cfg.frontend_dim),
                                  generator=gen, device=dev)
-            batch = {"frames": frames[rank * per:(rank + 1) * per], "labels": tokens % cfg.vocab}
+            batch = {"frames": frames[mine], "labels": tokens % cfg.vocab}
+        elif cfg.frontend == "patch":  # input_specs' layout: patches, then the text
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(step)
+            patches = torch.randn((shape.global_batch, cfg.frontend_len, cfg.d_model),
+                                  generator=gen, device=dev)
+            batch = {"tokens": tokens[:, :shape.seq_len - cfg.frontend_len],
+                     "patch_embeds": patches[mine]}
         t0 = time.time()
         model, opt_state, metrics = watchdog.guard(step_fn, model, opt_state, batch)
         loss = float(metrics["loss"])
@@ -159,19 +202,19 @@ def train_loop(
                 flush=True,
             )
         if mgr is not None and (step + 1) % ckpt_every == 0:
-            # every rank calls save; the manager writes on rank 0 alone
+            # every rank gathers the tree and calls save; rank 0 alone writes
             mgr.save(
                 step,
                 _checkpoint_tree(model, opt_state),
                 extra={"step": step, "pipeline": pipe.state_dict()},
             )
-            if dp > 1:
+            if mesh is not None:
                 dist.barrier()
     if mgr is not None:
         mgr.wait()
     if dslog is not None:
         dslog.save()
-    if dp > 1:
+    if mesh is not None:
         dist.barrier()
     return model, history
 

@@ -10,4 +10,5 @@ from .model import (  # noqa: F401
     init_model,
     lm_loss,
     prefill,
+    replicated_over_model,
 )

@@ -10,6 +10,16 @@ sum, acc) triple, so peak score memory is ``[B, H, S_q, chunk]``.
 Decode writes the new token's K/V into the preallocated cache in place
 (the reference's ``dynamic_update_slice`` returns a new cache) and attends
 against the *unrepeated* cache with a grouped einsum.
+
+On a mesh whose model axis splits the projections (``attention_split``),
+each rank computes its own heads: ``q``/``k``/``v`` column-parallel and
+``o`` row-parallel when the split falls on head boundaries for both the
+query and the KV heads.  Where it cuts a KV head (the reduced configs'
+2 KV heads over 4 model ranks), ``k``/``v`` are computed whole on every
+model rank and each rank takes the KV heads of its query heads; where it
+cuts a query head (qwen2-0.5b's 14 heads over 4), the whole layer is
+computed on every model rank.  Those weights are gathered over the model
+ranks, and ``gathered_over_model`` names them.
 """
 
 from __future__ import annotations
@@ -18,11 +28,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.collectives import copy_to_model
 from ..distributed.sharding import hint
-from .layers import Dense, Init, apply_rope, dense
+from .layers import (Dense, Init, apply_rope, dense, enter_model, model_group, model_rank,
+                     model_size, model_split)
 
-__all__ = ["Attention", "attention_block", "decode_attention_block", "NEG_INF",
-           "GLOBAL_WINDOW"]
+__all__ = ["Attention", "attention_block", "decode_attention_block", "attention_split",
+           "gathered_over_model", "NEG_INF", "GLOBAL_WINDOW"]
 
 NEG_INF = -1e30
 GLOBAL_WINDOW = 1 << 30  # "no window" sentinel: one code path for local/global
@@ -36,6 +48,35 @@ class Attention(nn.Module):
         self.k = Dense(init, d, cfg.n_kv_heads * hd, ("fsdp", "tp"), cfg.qkv_bias)
         self.v = Dense(init, d, cfg.n_kv_heads * hd, ("fsdp", "tp"), cfg.qkv_bias)
         self.o = Dense(init, cfg.n_heads * hd, d, ("tp", "fsdp"))
+
+
+def attention_split(p: Attention, cfg) -> tuple[str, int, int]:
+    """``(mode, query heads, KV heads)`` this rank computes, from the
+    placement of ``p``'s weights and the head counts:
+
+    * ``"heads"`` — the model axis splits ``q`` and ``k`` on head
+      boundaries: this rank's heads, ``o`` row-parallel;
+    * ``"q_heads"`` — it splits ``q`` on head boundaries but cuts a KV
+      head: ``k``/``v`` whole on every model rank, this rank's query heads;
+    * ``"whole"`` — otherwise (plain weights, a model axis of one, or a cut
+      query head): every head on every model rank."""
+    m = model_size(p.q.w)
+    if model_split(p.q.w) != 1 or model_split(p.o.w) != 0 or cfg.n_heads % m:
+        return "whole", cfg.n_heads, cfg.n_kv_heads
+    hq = cfg.n_heads // m
+    if model_split(p.k.w) == 1 and cfg.n_kv_heads % m == 0:
+        return "heads", hq, cfg.n_kv_heads // m
+    return "q_heads", hq, cfg.n_kv_heads
+
+
+def gathered_over_model(p: Attention, cfg) -> list:
+    """The names (``k.w``, …) of ``p``'s parameters split over the model
+    ranks that ``attention_split`` computes whole, so gathers."""
+    mode, _, _ = attention_split(p, cfg)
+    names = {"whole": ("q", "k", "v", "o"), "q_heads": ("k", "v")}.get(mode, ())
+    return [f"{n}.{t}" for n in names for t in ("w", "b")
+            if getattr(getattr(p, n), t) is not None
+            and model_split(getattr(getattr(p, n), t)) is not None]
 
 
 def _split_heads(x, n_heads, hd):
@@ -135,14 +176,26 @@ def attention_block(
     dev = x.device
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
-    q = _split_heads(dense(p.q, x), cfg.n_heads, hd)
-    k = _split_heads(dense(p.k, x), cfg.n_kv_heads, hd)
-    v = _split_heads(dense(p.v, x), cfg.n_kv_heads, hd)
+    split, n_q, n_kv = attention_split(p, cfg)
+    whole = split == "whole"
+    xq = x if whole else enter_model(x, p.q.w)
+    # k/v whole from the replicated x, then into the model region where each
+    # rank takes the KV heads of its own query heads
+    q = _split_heads(dense(p.q, xq, whole), n_q, hd)
+    k = dense(p.k, xq if split == "heads" else x, split != "heads")
+    v = dense(p.v, xq if split == "heads" else x, split != "heads")
+    if split == "q_heads":
+        k, v = copy_to_model(k, model_group(p.q.w)), copy_to_model(v, model_group(p.q.w))
+    k, v = _split_heads(k, n_kv, hd), _split_heads(v, n_kv, hd)
     q = hint(apply_rope(q, positions, cfg.rope_theta), "heads")
     k = apply_rope(k, positions, cfg.rope_theta)
     kv_keep = (k, v)
-    k = hint(_repeat_kv(k, cfg.n_heads), "heads")
-    v = hint(_repeat_kv(v, cfg.n_heads), "heads")
+    if split == "q_heads":
+        lo = model_rank(p.q.w) * n_q
+        k = _repeat_kv(k, cfg.n_heads)[:, :, lo:lo + n_q]
+        v = _repeat_kv(v, cfg.n_heads)[:, :, lo:lo + n_q]
+    k = hint(_repeat_kv(k, n_q), "heads")
+    v = hint(_repeat_kv(v, n_q), "heads")
 
     causal = not cfg.encoder_only
     pos1 = torch.arange(s, dtype=torch.int32, device=dev)
@@ -161,8 +214,8 @@ def attention_block(
             v = F.pad(v, (0, 0, 0, 0, 0, pad))
             kp = torch.cat([pos1, torch.full((pad,), -(10**9), dtype=torch.int32, device=dev)])
         out = _chunked_attention(q, k, v, pos1, kp, causal, window, chunk)
-    out = hint(out.reshape(b, s, cfg.n_heads * hd), "ffn")
-    y = hint(dense(p.o, out), "hidden")
+    out = hint(out.reshape(b, s, n_q * hd), "ffn")
+    y = hint(dense(p.o, out, whole), "hidden")
     if return_kv:
         return y, kv_keep
     return y

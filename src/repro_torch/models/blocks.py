@@ -16,6 +16,12 @@ which ``x @ w`` flattens) and recomputes the rest, the torch form of JAX's
 ``checkpoint_dots_with_no_batch_dims`` (attention's batched products are
 ``bmm`` and are recomputed).  Remat applies only while autograd records,
 so serving runs the layers as they are.
+
+On a mesh a layer's ZeRO-3 gathers and model-axis collectives
+(``models.layers``) run inside its checkpointed region, so the recompute
+gathers the weights again instead of keeping them: every rank runs the
+same layers in the same order, forward and recompute alike, so each
+issues its collectives in the same order as its group's other ranks.
 """
 
 from __future__ import annotations

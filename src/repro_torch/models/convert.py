@@ -2,7 +2,17 @@
 numpy arrays, into the port's modules (``copy_tree``/``from_reference``),
 and the port's parameters back into that tree (``to_reference``); and
 the reference's logical spec tree and parameter shapes of a model
-(``spec_tree``, ``shape_tree``), for ``distributed.sharding``.
+(``spec_tree``, ``shape_tree``), for ``distributed.sharding``; and
+``place_model``, which lays a model's parameters on a mesh as that
+module's ``param_sharding`` tree places them.
+
+On a placed model (``DTensor`` parameters, ``place_model``)
+``to_reference`` gathers each parameter's blocks (a collective every rank
+calls) into the reference's stacked tree, and ``tree_values``/
+``copy_tree`` take each rank's block: the leaf's own block where the
+leaf is a ``DTensor`` placed alike (``CheckpointManager.restore(
+shardings=...)``), else the slice of the whole value at the rank's mesh
+coordinate.
 
 Each parameter of the port's module tree is named by the reference's
 tree path, with the layer index where the reference stacks layers on a
@@ -20,12 +30,14 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..distributed.collectives import gather_full
+from ..distributed.sharding import NamedSharding, is_placed, local_block, local_tensor
 from ..kernels.ops import resolve_device
 from .layers import Init
 from .model import LM
 
 __all__ = ["copy_tree", "from_reference", "to_reference", "tree_values", "spec_tree",
-           "shape_tree"]
+           "shape_tree", "place_model"]
 
 
 def _leaves(tree, prefix=()):
@@ -36,7 +48,7 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
-def _split_name(name: str):
+def split_name(name: str):
     """(tree path, layer indices) of a parameter name."""
     parts = name.split(".")
     return (tuple(p for p in parts if not p.isdigit()),
@@ -44,27 +56,34 @@ def _split_name(name: str):
 
 
 def tree_values(module: nn.Module, tree: dict) -> list:
-    """The value in ``tree`` (numpy arrays or tensors) of each of
-    ``module``'s parameters, as tensors in ``module.parameters()`` order.
-    A numeric part of a parameter's name indexes the leading axis of the
+    """The value in ``tree`` (numpy arrays, tensors or ``DTensor``s) of
+    each of ``module``'s parameters, as tensors in ``module.parameters()``
+    order: for a placed parameter, this rank's block (module doc).  A
+    numeric part of a parameter's name indexes the leading axis of the
     leaf named by the other parts.  Every leaf must find its parameter and
     shape, and every parameter its leaf."""
     leaves = dict(_leaves(tree))
     used = set()
     values = []
     for name, param in module.named_parameters():
-        path, indices = _split_name(name)
+        path, indices = split_name(name)
         if path not in leaves:
             raise KeyError(f"the reference tree has no leaf {'/'.join(path)}")
         value = leaves[path]
-        if not isinstance(value, torch.Tensor):
-            value = np.asarray(value)
+        block = is_placed(value)
+        if block:  # placed alike: the stacked leaf's block, its layer axis whole
+            want = tuple(local_tensor(param).shape)
+            value = value.to_local()
+        else:
+            want = tuple(param.shape)
+            if not isinstance(value, torch.Tensor):
+                value = np.asarray(value)
         for index in indices:
             value = value[index]
-        if tuple(value.shape) != tuple(param.shape):
-            raise ValueError(
-                f"{name}: reference shape {value.shape}, port shape {tuple(param.shape)}"
-            )
+        if tuple(value.shape) != want:
+            raise ValueError(f"{name}: reference shape {value.shape}, port shape {want}")
+        if not block and is_placed(param):
+            value = local_block(param, value)
         if not isinstance(value, torch.Tensor):
             value = torch.from_numpy(np.array(value))
         values.append(value)
@@ -77,10 +96,11 @@ def tree_values(module: nn.Module, tree: dict) -> list:
 
 def copy_tree(module: nn.Module, tree: dict) -> nn.Module:
     """Copy ``tree``'s leaves into ``module``'s parameters (matched as
-    ``tree_values`` matches them) and return it."""
+    ``tree_values`` matches them; a placed parameter takes its block) and
+    return it."""
     with torch.no_grad():
         for param, value in zip(module.parameters(), tree_values(module, tree)):
-            param.copy_(value)
+            local_tensor(param).copy_(value)
     return module
 
 
@@ -89,7 +109,9 @@ def to_reference(module: nn.Module, values=None) -> dict:
     ``values`` (one tensor a parameter, in ``module.parameters()`` order,
     such as AdamW's ``m``): layer leaves stacked on a leading ``L`` axis.
     ``copy_tree(module, to_reference(module))`` gives back the same bits.
-    Numpy has no bfloat16, so a bfloat16 tensor raises ``TypeError``."""
+    A ``DTensor`` is gathered whole (``collectives.gather_full``), so on a
+    placed model every rank of its mesh calls this.  Numpy has no
+    bfloat16, so a bfloat16 tensor raises ``TypeError``."""
     named = list(module.named_parameters())
     if values is None:
         values = [p for _, p in named]
@@ -97,11 +119,12 @@ def to_reference(module: nn.Module, values=None) -> dict:
         raise ValueError(f"{len(values)} values for {len(named)} parameters")
     stacks: dict = {}
     for (name, _), value in zip(named, values):
-        path, indices = _split_name(name)
+        path, indices = split_name(name)
         if value.dtype == torch.bfloat16:
             raise TypeError(f"{name}: numpy has no bfloat16")
         # a copy: the tree must not change when the parameters are next updated
-        stacks.setdefault(path, []).append((indices, value.detach().to("cpu", copy=True).numpy()))
+        value = gather_full(value.detach())
+        stacks.setdefault(path, []).append((indices, value.to("cpu", copy=True).numpy()))
     tree: dict = {}
     for path, items in stacks.items():
         if items[0][0]:
@@ -128,7 +151,7 @@ def spec_tree(module: nn.Module) -> dict:
     seen: dict = {}
     for mod_name, mod in module.named_modules():
         for pname, _ in mod.named_parameters(recurse=False):
-            path, indices = _split_name(f"{mod_name}.{pname}" if mod_name else pname)
+            path, indices = split_name(f"{mod_name}.{pname}" if mod_name else pname)
             try:
                 spec = (None,) * len(indices) + tuple(mod.specs[pname])
             except (AttributeError, KeyError):
@@ -146,13 +169,43 @@ def shape_tree(module: nn.Module) -> dict:
     cfg)``), so it gives a published configuration's shapes."""
     stacks: dict = {}
     for name, param in module.named_parameters():
-        path, indices = _split_name(name)
+        path, indices = split_name(name)
         stacks.setdefault(path, []).append((indices, tuple(param.shape)))
     tree: dict = {}
     for path, items in stacks.items():
         shape = items[0][1]
         _set_leaf(tree, path, torch.Size((len(items),) + shape if items[0][0] else shape))
     return tree
+
+
+def place_model(model: nn.Module, sharding: dict) -> nn.Module:
+    """Replace each of ``model``'s parameters by a ``DTensor`` and return
+    the model.  ``sharding`` is ``param_sharding(mesh, spec_tree(model),
+    shapes_tree=shape_tree(model))``, the reference's ``jax.device_put``
+    tree; a parameter takes its leaf's placements without the leading
+    layer axis of a stacked leaf (which no rule splits).  Every rank holds
+    the whole value (the same seeded ``init_model``), so each keeps the
+    block of its mesh coordinate and nothing is sent
+    (``src_data_rank=None``); the whole tensors are freed."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    for mod_name, mod in model.named_modules():
+        for pname, p in list(mod.named_parameters(recurse=False)):
+            path, indices = split_name(f"{mod_name}.{pname}" if mod_name else pname)
+            node = sharding
+            for key in path:
+                node = node[key]
+            if any(e is not None for e in node.spec[:len(indices)]):
+                raise ValueError(f"{'/'.join(path)}: a rule splits the stacked layer axis")
+            mesh = node.mesh
+            placements = NamedSharding(mesh, node.spec[len(indices):]).placements
+            dt = distribute_tensor(p.detach(), mesh, placements, src_data_rank=None)
+            # a block split on its leading dimension is a view of the whole
+            # tensor: a copy of its own lets the whole one go
+            dt = DTensor.from_local(dt.to_local().clone(), mesh, dt.placements, run_check=False,
+                                    shape=dt.shape, stride=dt.stride())
+            setattr(mod, pname, nn.Parameter(dt, requires_grad=p.requires_grad))
+    return model
 
 
 def from_reference(cfg: ArchConfig, tree: dict, *, device="cuda", dtype=torch.float32) -> LM:

@@ -15,6 +15,20 @@ entry a dimension): ``"fsdp"`` (ZeRO-3 over the data axis), ``"tp"``
 (tensor parallel over the model axis) or ``None`` (replicated).
 ``convert.spec_tree`` gathers them into the reference's spec tree, and
 ``repro_torch.distributed.sharding`` resolves them against a mesh.
+
+On a mesh (``convert.place_model``) the parameters are ``DTensor``s and
+each rank computes on its blocks; the weight's placement decides the
+computation, as GSPMD's does for the reference (not the logical spec: a
+mesh axis that does not divide a dimension is demoted to replication).
+``weight`` gives the tensor a layer computes with: the local block with
+its ``fsdp`` dimension gathered over the data ranks (ZeRO-3,
+``collectives.zero3_gather``).  A ``dense`` weight split over the model
+ranks on its output dimension is column-parallel (this rank's columns; the
+caller puts its input into the model region once, ``enter_model``), on
+its input dimension row-parallel (this rank's rows, then the sum over the
+model ranks), and a weight replicated there is plain.  A layer that
+computes whole on every model rank (``whole=True``) gathers its weights
+over the model ranks too.  Plain tensors take the plain path unchanged.
 """
 
 from __future__ import annotations
@@ -23,7 +37,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.collectives import (copy_to_model, gather_from_model, reduce_from_model,
+                                       zero3_gather)
+from ..distributed.sharding import is_placed
+
 __all__ = [
+    "weight",
+    "model_split",
+    "model_size",
+    "model_group",
+    "model_rank",
+    "enter_model",
     "Init",
     "Dense",
     "dense",
@@ -37,6 +61,62 @@ __all__ = [
     "rope_freqs",
     "apply_rope",
 ]
+
+
+def _model_dim(w):
+    names = w.device_mesh.mesh_dim_names
+    return names.index("model") if "model" in names else None
+
+
+def model_size(w) -> int:
+    """The size of ``w``'s ``model`` mesh axis (1 for a plain tensor)."""
+    i = _model_dim(w) if is_placed(w) else None
+    return 1 if i is None else w.device_mesh.size(i)
+
+
+def model_split(w):
+    """The dimension of ``w`` split over the ``model`` mesh axis, or None
+    (a plain tensor, or one the model ranks replicate)."""
+    if model_size(w) == 1:
+        return None
+    p = w.placements[_model_dim(w)]
+    return p.dim if p.is_shard() else None
+
+
+def model_group(w):
+    """The process group of ``w``'s ``model`` mesh axis."""
+    return w.device_mesh.get_group(_model_dim(w))
+
+
+def model_rank(w) -> int:
+    """This rank's coordinate on ``w``'s ``model`` mesh axis."""
+    return w.device_mesh.get_local_rank(_model_dim(w))
+
+
+def enter_model(x, w):
+    """``x`` entering products whose weight ``w`` is split over the model
+    ranks (``collectives.copy_to_model``); ``x`` itself otherwise."""
+    return x if model_split(w) is None else copy_to_model(x, model_group(w))
+
+
+def weight(w, whole: bool = False):
+    """The tensor a layer computes with: ``w`` itself when plain; for a
+    ``DTensor``, this rank's block with each dimension split over the data
+    ranks gathered (``zero3_gather``: its gradient comes back
+    reduce-scattered) and, with ``whole``, the dimension split over the
+    model ranks gathered too (``gather_from_model``).  Differentiable."""
+    if not is_placed(w):
+        return w
+    x, mesh = w.to_local(), w.device_mesh
+    for i in reversed(range(mesh.ndim)):
+        p = w.placements[i]
+        if not p.is_shard() or mesh.size(i) == 1:
+            continue
+        if mesh.mesh_dim_names[i] != "model":
+            x = zero3_gather(x, p.dim, mesh.get_group(i))
+        elif whole:
+            x = gather_from_model(x, p.dim, mesh.get_group(i))
+    return x
 
 
 class Init:
@@ -79,10 +159,18 @@ class Dense(nn.Module):
         self.specs = {"w": tuple(spec), "b": (spec[-1],)}
 
 
-def dense(p: Dense, x):
-    y = x @ p.w
+def dense(p: Dense, x, whole: bool = False):
+    """``x @ w + b``.  On a placed weight (module doc): this rank's columns
+    when ``w`` is split over the model ranks on its output dimension (``x``
+    entered the model region), the sum over the model ranks when on its
+    input dimension (``x`` holds this rank's block of features), and the
+    whole product with ``whole``.  A bias takes its weight's output
+    placement, and is added after the sum."""
+    y = x @ weight(p.w, whole)
+    if not whole and model_split(p.w) == 0:
+        y = reduce_from_model(y, model_group(p.w))
     if p.b is not None:
-        y = y + p.b
+        y = y + weight(p.b, whole)
     return y
 
 
@@ -98,7 +186,7 @@ def rmsnorm(p: RMSNorm, x, eps=1e-6):
     """Computed in float32 and cast back to ``x``'s type."""
     h = x.float()
     h = h * torch.rsqrt((h * h).mean(dim=-1, keepdim=True) + eps)
-    return (h * p.g.float()).to(x.dtype)
+    return (h * weight(p.g).float()).to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -115,7 +203,7 @@ def layernorm(p: LayerNorm, x, eps=1e-6):
     mu = h.mean(dim=-1, keepdim=True)
     var = ((h - mu) ** 2).mean(dim=-1, keepdim=True)
     h = (h - mu) * torch.rsqrt(var + eps)
-    return (h * p.g.float() + p.b.float()).to(x.dtype)
+    return (h * weight(p.g).float() + weight(p.b).float()).to(x.dtype)
 
 
 class MLP(nn.Module):
@@ -127,6 +215,9 @@ class MLP(nn.Module):
 
 
 def mlp(p: MLP, x, act="swiglu"):
+    """Column-parallel ``up``/``gate`` and row-parallel ``down`` on a
+    mesh that splits ``d_ff`` (they share its demotion)."""
+    x = enter_model(x, p.up.w)
     up = dense(p.up, x)
     if act == "swiglu":
         h = F.silu(dense(p.gate, x)) * up

@@ -7,6 +7,14 @@ their batch row.  The ``sorted`` dispatch's scatter-add is
 ``index_put_(accumulate=True)``, which on CUDA adds with float atomics in
 no fixed order: its results match the reference within a tolerance, not
 bit for bit.
+
+On a mesh whose model axis splits the experts' ``F`` (``specs``), gate and
+up are column-parallel and down row-parallel per expert: the dispatched
+tokens enter the model region once, and the combined partial outputs are
+summed over the model ranks once, after the combine.  The combine weights
+multiply partial sums, so they enter the model region too: their gradient,
+which reaches the replicated router, is summed over the model ranks.  The
+router and the shared gate stay replicated.
 """
 
 from __future__ import annotations
@@ -15,8 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.collectives import reduce_from_model
 from ..distributed.sharding import hint
-from .layers import MLP, Dense, Init, dense, mlp
+from .layers import MLP, Dense, Init, dense, enter_model, mlp, model_group, model_split, weight
 
 __all__ = ["MoE", "moe_apply"]
 
@@ -64,7 +73,7 @@ def moe_apply(p: MoE, x, cfg):
     aux = e * torch.sum(me * ce)
 
     if getattr(m, "dispatch", "einsum") == "sorted":
-        y = _sorted_dispatch(p, x, cfg, gate_vals, gate_idx, cap)
+        y = _leave_experts(p, _sorted_dispatch(p, x, cfg, gate_vals, gate_idx, cap))
         if m.n_shared:
             y = y + mlp(p.shared, x, "swiglu")
         return y, aux
@@ -84,7 +93,11 @@ def moe_apply(p: MoE, x, cfg):
 
     xe = hint(torch.einsum("bsec,bsd->ebcd", dispatch, x), "experts")  # [E,B,cap,D]
     ye = _expert_ffn(p, xe)
-    y = hint(torch.einsum("bsec,ebcd->bsd", combine.to(x.dtype), ye), "hidden")
+    # the combine weights meet partial sums: their gradient is summed over
+    # the model ranks (enter_model), as the expert outputs are
+    combine = enter_model(combine.to(x.dtype), p.gate_w)
+    y = _leave_experts(p, torch.einsum("bsec,ebcd->bsd", combine, ye))
+    y = hint(y, "hidden")
 
     if m.n_shared:
         y = y + mlp(p.shared, x, "swiglu")
@@ -97,12 +110,20 @@ def combine_positions_base(combine):
     return taken[:, None, :]
 
 
+def _leave_experts(p: MoE, y):
+    """The experts' combined output: summed over the model ranks when they
+    split the experts' ``F`` (each holds a partial sum)."""
+    return y if model_split(p.gate_w) is None else reduce_from_model(y, model_group(p.gate_w))
+
+
 def _expert_ffn(p: MoE, xe):
-    """xe: [E, B, cap, D] → [E, B, cap, D] (SwiGLU expert MLPs)."""
-    h = F.silu(torch.einsum("ebcd,edf->ebcf", xe, p.gate_w)) * torch.einsum(
-        "ebcd,edf->ebcf", xe, p.up_w
+    """xe: [E, B, cap, D] → [E, B, cap, D] (SwiGLU expert MLPs); a partial
+    sum over this rank's block of ``F`` on a mesh that splits it."""
+    xe = enter_model(xe, p.gate_w)
+    h = F.silu(torch.einsum("ebcd,edf->ebcf", xe, weight(p.gate_w))) * torch.einsum(
+        "ebcd,edf->ebcf", xe, weight(p.up_w)
     )
-    return torch.einsum("ebcf,efd->ebcd", h, p.down_w)
+    return torch.einsum("ebcf,efd->ebcd", h, weight(p.down_w))
 
 
 def _sorted_dispatch(p: MoE, x, cfg, gate_vals, gate_idx, cap):
@@ -137,7 +158,7 @@ def _sorted_dispatch(p: MoE, x, cfg, gate_vals, gate_idx, cap):
     ye_flat = torch.cat([ye_flat, torch.zeros((b, 1, d), dtype=ye_flat.dtype, device=dev)],
                         dim=1)
     contrib = torch.take_along_dim(ye_flat, slot[..., None], dim=1)
-    w = torch.where(keep, gate_s, 0.0).to(x.dtype)[..., None]
+    w = enter_model(torch.where(keep, gate_s, 0.0).to(x.dtype)[..., None], p.gate_w)
     y = torch.zeros_like(x)
     y.index_put_((bidx, tok_s), contrib * w, accumulate=True)
     return y

@@ -7,6 +7,12 @@ attention-like contraction, and chunk-to-chunk information flows through
 an ``[H, N, P]`` state carried by a Python loop over the chunks (the
 reference's ``lax.scan``).  Decode keeps ``(conv_state [B, d_conv-1, CH],
 ssm_state [B, H, N, P])`` per layer and costs O(1) a token.
+
+On a mesh the block is computed whole on every model rank: the fused
+``in_proj``'s contiguous column blocks (and ``conv_w``/``conv_b``'s
+channel blocks) cut across its z/x/B/C/dt segments, so its weights split
+over the model ranks are gathered there (``gathered_over_model``), as
+GSPMD reshards them for the reference.
 """
 
 from __future__ import annotations
@@ -18,9 +24,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..distributed.sharding import hint
-from .layers import Dense, Init, RMSNorm, dense, rmsnorm
+from .layers import Dense, Init, RMSNorm, dense, model_split, rmsnorm, weight
 
-__all__ = ["SSM", "ssm_apply", "ssm_decode", "ssm_state_shapes"]
+__all__ = ["SSM", "ssm_apply", "ssm_decode", "ssm_state_shapes", "gathered_over_model"]
 
 
 def _dims(cfg):
@@ -52,6 +58,14 @@ class SSM(nn.Module):
         self.out_proj = Dense(init, d_inner, d, ("tp", "fsdp"), scale=d_inner**-0.5)
 
 
+def gathered_over_model(p: SSM) -> list:
+    """The names of ``p``'s parameters split over the model ranks, which
+    ``ssm_apply`` gathers to compute the block whole."""
+    named = {"in_proj.w": p.in_proj.w, "conv_w": p.conv_w, "conv_b": p.conv_b,
+             "out_proj.w": p.out_proj.w}
+    return [n for n, t in named.items() if model_split(t) is not None]
+
+
 def _split_proj(cfg, zxbcdt):
     d_inner, _, _, conv_ch = _dims(cfg)
     z, xBC, dt = torch.tensor_split(zxbcdt, [d_inner, d_inner + conv_ch], dim=-1)
@@ -78,13 +92,13 @@ def ssm_apply(p: SSM, x, cfg):
     if seq % q:
         raise ValueError("sequence must be divisible by SSD chunk")
 
-    z, xBC, dt = _split_proj(cfg, dense(p.in_proj, x))
-    xBC = _causal_conv(xBC, p.conv_w, p.conv_b)
+    z, xBC, dt = _split_proj(cfg, dense(p.in_proj, x, whole=True))
+    xBC = _causal_conv(xBC, weight(p.conv_w, whole=True), weight(p.conv_b, whole=True))
     xh, B_ssm, C_ssm = torch.tensor_split(xBC, [d_inner, d_inner + n_groups * n], dim=-1)
     xh = xh.reshape(b, seq, n_heads, hd)
 
-    dt = F.softplus(dt.float() + p.dt_bias)  # [B,S,H]
-    a = -torch.exp(p.A_log)  # [H] negative
+    dt = F.softplus(dt.float() + weight(p.dt_bias))  # [B,S,H]
+    a = -torch.exp(weight(p.A_log))  # [H] negative
     da = dt * a  # [B,S,H] log-decay per step
     xdt = xh.float() * dt[..., None]  # [B,S,H,P]
     b_all = B_ssm.float()  # [B,S,N] (one group)
@@ -110,10 +124,10 @@ def ssm_apply(p: SSM, x, cfg):
         state = state * torch.exp(csum[:, -1, :])[:, :, None, None] + s_chunk
         ys.append(y_intra + y_inter)
     y = torch.cat(ys, dim=1)
-    y = y + p.D[None, None, :, None] * xh.float()
+    y = y + weight(p.D)[None, None, :, None] * xh.float()
     y = y.reshape(b, seq, d_inner).to(x.dtype)
     y = rmsnorm(p.norm, y * F.silu(z))
-    return hint(dense(p.out_proj, y), "hidden")
+    return hint(dense(p.out_proj, y, whole=True), "hidden")
 
 
 def ssm_state_shapes(cfg, batch):

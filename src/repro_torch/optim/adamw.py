@@ -8,6 +8,10 @@ tensor on the parameters' device.  Every step-dependent scalar (the bias
 corrections ``b1 ** step``, the warmup ratio, the cosine) is a float32
 tensor, as the reference computes it, so no Python double enters the
 update and nothing leaves the device.
+
+On a mesh the parameters, their gradients and both moments are
+``DTensor``s placed alike: the update runs on each rank's blocks, and
+``global_norm`` counts each entry of the global gradient once.
 """
 
 from __future__ import annotations
@@ -16,7 +20,10 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from ..distributed.sharding import is_placed, local_tensor
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "cosine_schedule"]
 
@@ -49,8 +56,27 @@ def adamw_init(model) -> dict:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in float32 (a 0-d tensor)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tensors))
+    """sqrt of the sum of squares of every tensor, in float32 (a 0-d tensor).
+    A ``DTensor`` counts each entry of its global value once: the sums of
+    squares of the blocks are added over the mesh dimensions that split
+    it (one ``all_reduce`` a set of such dimensions, over each of their
+    groups), and not over those that replicate it."""
+    plain, split = [], {}
+    for x in tensors:
+        sq = torch.sum(torch.square(local_tensor(x).float()))
+        if not is_placed(x):
+            plain.append(sq)
+            continue
+        mesh = x.device_mesh
+        dims = tuple(i for i, p in enumerate(x.placements) if p.is_shard() and mesh.size(i) > 1)
+        key = (mesh, dims)
+        split[key] = split[key] + sq if key in split else sq
+    total = sum(plain)
+    for (mesh, dims), sq in split.items():
+        for i in dims:
+            dist.all_reduce(sq, group=mesh.get_group(i))
+        total = total + sq
+    return torch.sqrt(total)
 
 
 def cosine_schedule(step, cfg: AdamWConfig) -> torch.Tensor:
@@ -87,6 +113,8 @@ def adamw_update(model, grads, state: dict, cfg: AdamWConfig):
     corr1 = 1 - torch.pow(cfg.b1, step_f)
     corr2 = 1 - torch.pow(cfg.b2, step_f)
     for p, g, m, v in zip(params, grads, state["m"], state["v"]):
+        # a placed parameter's block, its gradient's and its moments'
+        p, g, m, v = (local_tensor(t) for t in (p, g, m, v))
         g = g.float() * scale
         m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)

@@ -85,3 +85,32 @@ def unflat(flat_tree: dict) -> dict:
 def block(index, shape) -> list:
     """``[[start, stop], ...]`` of a tuple of slices over ``shape``."""
     return [list(s.indices(n)[:2]) for s, n in zip(index, shape)]
+
+# data-parallel and mesh training: the global batch, the steps held to the
+# reference and the optimizer (test_torch_dp_train.py, test_torch_tp_*.py)
+DP_SEQ, DP_BATCH, DP_STEPS = 16, 4, 3
+DP_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=6)
+# the reference's own jitted step on a (2, 2) mesh: (arch, n_micro), an MoE's
+# n_micro the mesh's data size (each data rank's router sees its block)
+TP_MESH_STEP = (("qwen2-0.5b", 1), ("qwen2-moe-a2.7b", 2))
+TP_MESHES = ("2x2", "1x4", "4x1")
+# the vocab-parallel layer cases on a (1, 2) mesh: (arch, changes to its
+# reduced() config, MoE dispatch); vocab 250 pads to 256, ids 250-255 in
+# model rank 1's half; "cut_heads" has 3 query heads of 16, which 2 model
+# ranks cut, so its attention computes whole on both; "moe_sorted" splits
+# the experts' F under the gather/scatter dispatch
+TP2_VOCAB = 250
+TP2_LM = {"tied": ("qwen2-0.5b", {}, None), "untied": ("qwen1.5-32b", {}, None),
+          "cut_heads": ("qwen2-0.5b", {"n_heads": 3, "n_kv_heads": 1, "head_dim": 16}, None),
+          "moe_sorted": ("qwen2-moe-a2.7b", {}, "sorted")}
+
+
+def tp2_cfg(configs, name):
+    """``TP2_LM[name]``'s config from either package's ``configs``."""
+    import dataclasses
+
+    arch, changes, dispatch = TP2_LM[name]
+    cfg = dataclasses.replace(configs.get_arch(arch).reduced(), vocab=TP2_VOCAB, **changes)
+    if dispatch is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=dispatch))
+    return cfg

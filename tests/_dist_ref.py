@@ -2,12 +2,18 @@
 subprocess with 4 host devices
 (``XLA_FLAGS=--xla_force_host_platform_device_count=4``)::
 
-    python tests/_dist_ref.py IO_DIR
+    python tests/_dist_ref.py IO_DIR [tp | tp-blocks]
 
 reads ``IO_DIR/inputs.npz`` (and the reference checkpoint in
 ``IO_DIR/ref_ckpt``) and writes ``IO_DIR/reference.json``: every spec of
 ``_dist_cases`` and, for each placement, the block of each device by its
-mesh coordinates (``devices_indices_map``)."""
+mesh coordinates (``devices_indices_map``).  With ``tp`` (for
+``test_torch_tp_*.py``) it writes ``IO_DIR/reference_tp.json`` instead:
+the blocks of every architecture's parameters at ``reduced()`` on the
+``TP_MESHES``, and the reference's own jitted train step on a (2, 2) mesh
+(``TP_MESH_STEP``) from the trees in ``IO_DIR/tp_init.npz``, its
+parameters after each step in ``IO_DIR/refmesh_<arch>.step<s>.npz``
+(``tp-blocks``: the blocks alone)."""
 
 import json
 import os
@@ -27,8 +33,11 @@ from repro.distributed.collectives import pipeline_stage_step
 from repro.distributed.elastic import reshard_tree
 from repro.distributed.sharding import (batch_sharding, cache_sharding, hint, param_sharding,
                                         set_activation_mesh)
+from repro.data.pipeline import PipelineConfig, TokenPipeline
+from repro.launch import steps as jsteps
 from repro.launch.mesh import make_mesh
 from repro.launch.steps import input_specs
+from repro.optim.adamw import AdamWConfig, adamw_init
 from repro.models.blocks import init_caches
 from repro.models.model import init_model
 
@@ -152,5 +161,57 @@ def main(io):
         json.dump(res, fh)
 
 
+def main_tp(io, mesh_step=True):
+    meshes = {k: make_mesh(*K.MESHES[k]) for k in K.TP_MESHES}
+    res = {"blocks": {}, "mesh_step": {}}
+    for name in K.ARCHS:
+        shapes, specs = arch_shapes(jconfigs.get_arch(name).reduced())
+        flat_shapes = K.flat(shapes)
+        for m, mesh in meshes.items():
+            sh = param_sharding(mesh, specs, shapes_tree=shapes)
+            res["blocks"][f"{m}|{name}"] = {
+                p: blocks_by_coord(mesh, s, flat_shapes[p].shape) for p, s in K.flat(sh).items()}
+    if mesh_step:
+        res["mesh_step"] = mesh_steps(io, meshes["2x2"])
+    with open(os.path.join(io, "reference_tp.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def mesh_steps(io, mesh) -> dict:
+    """``TP_MESH_STEP``'s jitted steps on ``mesh`` (GSPMD), from the trees of
+    ``IO_DIR/tp_init.npz`` placed by ``param_sharding``, on the global
+    batches placed by ``batch_sharding``: each step's metrics."""
+    init = np.load(os.path.join(io, "tp_init.npz"))
+    shape = jconfigs.ShapeConfig("dp", K.DP_SEQ, K.DP_BATCH, "train")
+    out = {}
+    for name, n_micro in K.TP_MESH_STEP:
+        cfg = jconfigs.get_arch(name).reduced()
+        tree = K.unflat({k.split("|", 1)[1]: init[k] for k in init.files
+                         if k.startswith(name + "|")})
+        _, specs = arch_shapes(cfg)
+        p_shard = param_sharding(mesh, specs, shapes_tree=tree)
+        params = jax.tree.map(jax.device_put, tree, p_shard)
+        opt = adamw_init(params)
+        opt = {"m": jax.tree.map(jax.device_put, opt["m"], p_shard),
+               "v": jax.tree.map(jax.device_put, opt["v"], p_shard), "step": opt["step"]}
+        plan = {**jsteps.attn_plan(cfg, shape, dp_total=2), "n_micro": n_micro}
+        step = jax.jit(jsteps.make_train_step(cfg, AdamWConfig(**K.DP_OPT), plan))
+        pipe = TokenPipeline(PipelineConfig(cfg.vocab, K.DP_SEQ, K.DP_BATCH, 0))
+        tok_sh = batch_sharding(mesh, {"tokens": np.zeros((K.DP_BATCH, K.DP_SEQ))})["tokens"]
+        metrics = []
+        with mesh:
+            for s in range(K.DP_STEPS):
+                tokens = jax.device_put(jnp.asarray(pipe.global_batch_tokens(s)), tok_sh)
+                params, opt, m = step(params, opt, {"tokens": tokens})
+                metrics.append({k: float(v) for k, v in m.items()})
+                np.savez(os.path.join(io, f"refmesh_{name}.step{s}.npz"),
+                         **{k: np.asarray(v) for k, v in K.flat(params).items()})
+        out[name] = metrics
+    return out
+
+
 if __name__ == "__main__":
-    main(sys.argv[1])
+    if sys.argv[2:] in (["tp"], ["tp-blocks"]):
+        main_tp(sys.argv[1], mesh_step=sys.argv[2] == "tp")
+    else:
+        main(sys.argv[1])

@@ -13,9 +13,12 @@ parameters measured within 1.02e-4 of ``n_micro = 1`` and 4.8e-5 of
 MoE (qwen2-moe): the router's load-balance loss is not linear in the
 batch, so the port equals ``n_micro = W`` and not ``n_micro = 1``; the
 reported loss is the mean over the ranks of each rank's ``ce + 0.01 *
-aux``.  Also: replicas stay bit-identical, a checkpoint written at W = 4
-resumes at W = 2 and at W = 1 and restores in the reference, rank 0's
-lineage equals a single-process pipeline's, the CLI under ``torchrun``,
+aux``.  The ranks hold ZeRO-3 blocks (``fsdp`` dimensions split over the
+data ranks; ``test_torch_tp_train.py`` checks the blocks), so the
+parameters compared are the gathered tree.  Also: every rank gathers the
+same tree, a checkpoint written at W = 4 resumes at W = 2 and at W = 1 and
+restores in the reference, rank 0's lineage equals a single-process
+pipeline's, ``model_parallel = 2`` on 2 ranks, the CLI under ``torchrun``,
 and the reference's ``shard_id=0`` fault at ``dp > 1`` (``ROADMAP.md`` §3
 item 6), which the port does not copy.
 """
@@ -151,6 +154,7 @@ def test_moe_data_parallel_differs_from_the_unsplit_step(runs, world):
 
 @pytest.mark.parametrize("world", [4, 2])
 def test_replicas_stay_identical(runs, world):
+    """Every rank gathers the same parameters and reports the same losses."""
     for run in ("dense", "moe"):
         ranks = [r[run] for r in runs[world]]
         assert len({r["digest"] for r in ranks}) == 1, run
@@ -230,8 +234,21 @@ def test_the_port_trains_on_the_whole_global_batch():
 
 
 def test_model_parallel_still_raises_under_a_group(runs):
+    """``model_parallel = 2`` under a group of 2 ranks, which raised before
+    the port's tensor parallelism, now trains on a (1, 2) mesh: the
+    reference's single-device step, step by step; every head splits on a
+    head boundary, so no layer computes whole."""
+    got = runs[2][0]["model_parallel"]
+    for s, (params, m) in enumerate(runs["ref"][(DENSE, 1)]):
+        for key in ("loss", "ce", "grad_norm", "lr"):
+            _close(got["metrics"][s][key], m[key], f"step {s} {key}")
+        port = _params(runs["io"], "mp2", s)
+        assert set(port) == set(params)
+        for path, want in params.items():
+            _close(port[path], want, f"step {s} {path}")
     for r in runs[2]:
-        assert "tensor-parallel slice" in r["model_parallel"]
+        assert r["model_parallel"]["digest"] == got["digest"]
+        assert r["model_parallel"]["replicated"] == []
 
 
 def test_train_cli_under_torchrun_on_cpu(tmp_path):

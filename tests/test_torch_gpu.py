@@ -640,6 +640,44 @@ def test_sharded_restore_on_one_nccl_rank(nccl_rank, tmp_path):
             assert torch.equal(dt.full_tensor().cpu(), w)
 
 
+def test_placed_step_on_one_nccl_rank_equals_the_plain_step(nccl_rank):
+    """``make_train_step(mesh=)`` on ``local_mesh(1)``: the parameters are
+    ``DTensor``s on the card (every block whole), and two steps give the
+    plain step's metrics and parameters."""
+    import copy
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.sharding import param_sharding
+    from repro_torch.launch.mesh import local_mesh
+    from repro_torch.launch.steps import attn_plan, make_train_step
+    from repro_torch.models import init_model
+    from repro_torch.models.convert import place_model, shape_tree, spec_tree
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    cfg, *_ = _reduced_qwen2()
+    shape = ShapeConfig("t", 32, 2, "train")
+    plan, opt_cfg = attn_plan(cfg, shape, 1), AdamWConfig(lr=1e-3, warmup_steps=1)
+    plain = init_model(cfg, 3, device=nccl_rank)
+    mesh = local_mesh(1, device=nccl_rank)
+    placed = copy.deepcopy(plain)
+    place_model(placed, param_sharding(mesh, spec_tree(placed), shapes_tree=shape_tree(placed)))
+    assert all(isinstance(p, DTensor) and p.to_local().is_cuda for p in placed.parameters())
+    runs = {}
+    for name, model, m in (("plain", plain, None), ("placed", placed, mesh)):
+        step, opt = make_train_step(cfg, opt_cfg, plan, mesh=m), adamw_init(model)
+        gen = torch.Generator().manual_seed(SEED)
+        runs[name] = []
+        for _ in range(2):
+            tokens = torch.randint(0, cfg.vocab, (2, 32), generator=gen).to(nccl_rank)
+            model, opt, out = step(model, opt, {"tokens": tokens})
+            runs[name].append([float(out[k]) for k in ("loss", "grad_norm", "lr")])
+    np.testing.assert_allclose(runs["placed"], runs["plain"], rtol=1e-6, atol=1e-6)
+    for p, q in zip(placed.parameters(), plain.parameters()):
+        torch.testing.assert_close(p.to_local(), q.detach(), rtol=1e-6, atol=1e-6)
+
+
 def test_collectives_through_nccl_equal_one_rank_answers(nccl_rank):
     """On one rank the flash-decode combine is ``o / l`` and the ring shift
     is the stage's own output, through NCCL's reductions and send/recv."""
