@@ -107,18 +107,19 @@ Phases:
     tensors through the host), each running ``train_loop`` on ``cuda:0``
     on a (2, 1) mesh, ZeRO-3 (each rank holds its data coordinate's block
     of every ``fsdp`` dimension), at qwen2-0.5b's published widths and 2
-    of its 24 layers (the depth cut to keep the script near 300 s) for 3
-    steps of phase 11's batches, one sequence a rank: loss, ``grad_norm``
-    and ``lr`` within 1e-4 of those of a one-process ``train_loop`` at the
-    same depth, the gathered parameters within 1e-5 of its after step 3
-    (below 2 sum(lr), which any two AdamW runs of 3 steps keep; largest
+    of its 24 layers (the depth cut to keep the script near 300 s) for 2
+    steps (3 before phase 14) of phase 11's batches, one sequence a rank:
+    loss, ``grad_norm`` and ``lr`` within 1e-4 of those of a one-process
+    ``train_loop`` at the same depth, the gathered parameters within 1e-5
+    of its after the last step (below 2 sum(lr), which any two AdamW runs
+    of those steps keep; largest
     difference printed), both ranks' gathered trees equal and each rank's
     blocks their slices of it; each rank's held parameter, gradient and
     moment bytes, peak memory (beside the one-process run's), step ms, its
     collectives' bytes a step and those collectives replayed alone, after
     a checked call of each on known values; (b) a one-rank ``nccl`` group in this
     process: ``local_mesh(1)`` is a ``cuda`` mesh, ``reshard_tree`` lays
-    qwen2-0.5b's tree (phase 11's weights after step 3) on it bit for bit,
+    qwen2-0.5b's tree (phase 11's weights after step DP_STEPS) on it bit for bit,
     ``restore(shardings=)`` of 11c's checkpoint equals the plain restore,
     and ``flash_decode_combine`` and ``pipeline_stage_step`` equal their
     one-rank answers.
@@ -126,13 +127,35 @@ Phases:
     itself 4 times as ``gloo`` ranks sharing the card, running
     ``train_loop(model_parallel=2)`` on a (2, 2) mesh at qwen2-0.5b's
     published widths and depth (``remat="full"``), phase 11's two
-    sequences, one a data coordinate, for 3 steps: loss, ``grad_norm`` and
-    ``lr`` within 1e-4 of phase 11's; the gathered parameters within 1e-5
+    sequences, one a data coordinate, for 2 steps (3 before phase 14):
+    loss, ``grad_norm`` and ``lr`` within 1e-4 of phase 11's; the gathered
+    parameters within 1e-5
     of phase 11's for all but a 1e-6 share of the entries (phase 11b's
     rule) and all below 2 sum(lr); each rank's blocks their slices of the
     gathered tree, exactly; ``replicated_over_model`` empty; rank 0's
     lineage store (logged by its pipeline on the card) queried back to the
     corpus, which must launch ``range_join_mask``; printed as 12a.
+14. the dry run and placed serving (``launch.dryrun``, ``launch.steps``'
+    placed prefill and decode): (a) ``python -m repro_torch.launch.dryrun
+    --device cuda`` of qwen2-0.5b's four shapes on the 16x16 mesh and of
+    grok-1-314b ``train_4k`` on 2x16x16, each a process of its own on a
+    fake process group, started niced at phase 10 (CPU work alone): every
+    cell ``ok``, or ``skip`` exactly as ``skip_reason`` says, ``fits``
+    against the card's memory, state bytes, flops and peak printed; (b)
+    the dry run of phase 13's configuration on a fake group of 4 (a (2, 2)
+    mesh, float32, one 4,096-token sequence a data rank, chunk 512): its
+    held parameter, gradient and moment bytes and each collective kind's
+    calls and bytes a step must equal phase 13's rank 0's, its peak lie
+    within 15 % of phase 13's rank 0 peak (ratio printed); and phase 11's
+    configuration on one fake rank, its flops printed beside the flop
+    bound's count; (c) the script starts itself 4 times (``--serve-rank``)
+    as ``gloo`` ranks sharing the card: qwen2-0.5b at its published widths
+    and depth placed on a (2, 2) mesh (8 prompts, KV heads over the model
+    ranks) and a (1, 4) mesh (one prompt, the caches' sequence over
+    ``("data", "model")``), placed prefill and greedy decode of 4-token
+    prompts and 4 new tokens on caches placed by ``cache_sharding``: the
+    tokens must equal a one-card run's on the same weights; ms a token,
+    each rank's cache bytes and a step's collectives printed.
 
 Phases 3-5 are the port's main path, phase 7 the store's, phase 8's
 ``ops.run_boundaries`` calls the run-boundary kernel's and phase 9 the
@@ -146,7 +169,9 @@ is required to launch there.  Phase 11's are reported as
 ``range_join_mask``; phase 12's as ``launches_dp_path`` (the ranks of 12a
 report theirs; the distributed pieces have no kernel); phase 13's ranks
 count theirs from zero and report them as ``launches_tp_path``, where
-``range_join_mask`` must have launched.  The JSON line reports phase 6's and phase 8's numbers
+``range_join_mask`` must have launched; phase 14's (``launches_dry_path``)
+are reported, as the dry run and placed serving launch no kernel.  The
+JSON line reports phase 6's and phase 8's numbers
 on the main paths' own operands.  Any failure raises and exits non-zero.
 Without CUDA, or without the port beside this script, it exits non-zero
 and prints no result.  The last three stdout lines are the card's name and
@@ -160,9 +185,11 @@ needs nothing of the JAX package.
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -257,11 +284,12 @@ REMAT_TOL = 1e-5
 RESUME_SEQ = 64
 RESUME_TOL = 1e-6
 # phase 12a: train_loop data-parallel over DP_RANKS processes sharing the card
-# (a gloo group: NCCL takes one rank a card), DP_STEPS steps of phase 11's
+# (a gloo group: NCCL takes one rank a card), DP_STEPS steps (3 before phase
+# 14, cut to keep the whole script near its length without it) of phase 11's
 # batches at DP_LAYERS of qwen2-0.5b's 24 layers (published widths; the depth
 # is cut to keep the script near 300 s, and phase 13 trains all 24), held to a
 # one-process train_loop at that depth
-DP_RANKS, DP_LAYERS, DP_STEPS, DP_TOL, DP_TIMEOUT_S = 2, 2, 3, 1e-4, 600
+DP_RANKS, DP_LAYERS, DP_STEPS, DP_TOL, DP_TIMEOUT_S = 2, 2, 2, 1e-4, 600
 # and every parameter within DP_PARAM_TOL of the reference's: below 2 sum(lr), the
 # most that any two AdamW runs of DP_STEPS steps can differ by, so a wrong
 # gradient average or update shows there too
@@ -274,6 +302,30 @@ DP_PARAM_TOL = 1e-5
 TP_RANKS, TP_MODEL = 4, 2
 # phase 12b: flash-decode partials on a one-rank NCCL group
 FLASH_SHAPE, FLASH_TOL = (2, 14, 4096, 64), 1e-5
+# phase 14: the dry run (python -m repro_torch.launch.dryrun, each on a fake
+# process group of its own, fake tensors on the card's device type), started
+# in the background at phase 10 (niced: CPU alone); name -> its arguments.
+# 14a: qwen2-0.5b's four shapes on the 16x16 mesh and grok-1-314b train_4k
+# on 2x16x16; 14b: phase 13's configuration on a (2, 2) mesh of 4 fake ranks
+# (published widths and depth, float32, remat full, one 4,096-token sequence a
+# data rank, chunk 512) and phase 11's on one
+DRY_RUNS = {
+    "14a_qwen2": ("--arch", "qwen2-0.5b", "--shape", "all", "--skip-account"),
+    "14a_grok": ("--arch", "grok-1-314b", "--shape", "train_4k", "--multi-pod",
+                 "--skip-account"),
+    "14b_mesh": ("--arch", TRAIN_ARCH, "--shape", TRAIN_SHAPE, "--mesh", f"{TP_RANKS // TP_MODEL}"
+                 f"x{TP_MODEL}", "--global-batch", str(TRAIN_BATCH), "--param-dtype", "float32",
+                 "--remat", "full", "--chunk", "512", "--skip-account"),
+    "14b_card": ("--arch", TRAIN_ARCH, "--shape", TRAIN_SHAPE, "--mesh", "1x1", "--global-batch",
+                 str(TRAIN_BATCH), "--param-dtype", "float32", "--remat", "full", "--chunk", "512",
+                 "--skip-account"),
+}
+DRY_TIMEOUT_S, DRY_PEAK_TOL = 900, 0.15
+# phase 14c: placed prefill and greedy decode at qwen2-0.5b's published widths
+# and depth on TP_RANKS gloo ranks sharing the card: (mesh, prompts) cases,
+# PLACED_PROMPT-token prompts, PLACED_NEW greedy tokens
+PLACED_CASES = (((2, 2), 8), ((1, 4), 1))
+PLACED_PROMPT, PLACED_NEW = 4, 4
 
 
 def log(msg: str) -> None:
@@ -2095,8 +2147,11 @@ def replay_exchange(torch, dist, coords, step_traffic) -> dict:
     1`` gathers to the blocks in group order, a whole of block numbers
     reduce-scatters to ``size`` times this rank's, and ``r + 1`` all-reduces
     to ``size (size + 1) / 2``."""
+    # global_norm's scalars go over the data and the model groups: replayed
+    # over the data group
     groups = {"zero3_gather": coords.data_group, "zero3_reduce_scatter": coords.data_group,
-              "model_all_reduce": coords.model_group, "model_all_gather": coords.model_group}
+              "model_all_reduce": coords.model_group, "model_all_gather": coords.model_group,
+              "dp_mean_all_reduce": coords.data_group, "norm_all_reduce": coords.data_group}
     out = {}
     for kind, (n, b) in sorted(step_traffic.items()):
         group = groups[kind]
@@ -2398,6 +2453,276 @@ def leaf_pairs(got: dict, want: dict):
             yield from leaf_pairs(got[k], w)
         else:
             yield got[k], w
+
+
+# --------------------------------------------------------------------------- #
+# The dry run and placed serving (phase 14)
+# --------------------------------------------------------------------------- #
+def start_dry_runs(workdir) -> dict:
+    """Phase 14's dry runs, each a process of its own (``DRY_RUNS``),
+    niced; records under ``workdir/dryrun/<name>``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = {}
+    for name, args in DRY_RUNS.items():
+        out = os.path.join(workdir, "dryrun", name)
+        procs[name] = (time.perf_counter(), out, subprocess.Popen(
+            [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun", "--device", "cuda",
+             "--out", out, *args], cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, preexec_fn=lambda: os.nice(19)))
+    return procs
+
+
+def dry_records(procs) -> dict:
+    """Wait for the dry runs; ``{name: (wall s, [records])}``."""
+    out = {}
+    for name, (t0, path, proc) in procs.items():
+        try:
+            text = proc.communicate(timeout=DRY_TIMEOUT_S)[0]
+        finally:
+            proc.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 14 dry run {name} exited {proc.returncode}:\n"
+                                 f"{text[-3000:]}")
+        recs = []
+        for tag in sorted(os.listdir(path)):
+            for f in sorted(os.listdir(os.path.join(path, tag))):
+                with open(os.path.join(path, tag, f)) as fh:
+                    recs.append(json.load(fh))
+        out[name] = (time.perf_counter() - t0, recs)
+    return out
+
+
+def phase_dry_run(torch, card, procs, tp, training) -> dict:
+    """Phase 14a and 14b (module doc): each cell ``ok`` or ``skip`` as
+    ``skip_reason`` says, ``fits`` against the card's memory; 14b's held
+    bytes and collectives equal to phase 13's measured ones, its peak
+    within DRY_PEAK_TOL of phase 13's rank 0."""
+    from repro_torch.configs import get_arch, skip_reason
+
+    runs = dry_records(procs)
+    total = torch.cuda.get_device_properties(0).total_memory
+    res = {"device_memory_bytes": total, "cells": []}
+    for name, (wall, recs) in runs.items():
+        log(f"  dry run {name}: {len(recs)} cells in {wall:.1f}s (a process of its own, started "
+            "at phase 10)")
+        for rec in recs:
+            reason = skip_reason(get_arch(rec["arch"]), rec["shape"]) if name.startswith("14a") \
+                else None
+            if reason is not None:
+                if rec["status"] != "skip" or rec["reason"] != reason:
+                    raise AssertionError(f"phase 14a {rec['arch']} {rec['shape']}: {rec}")
+                log(f"    {rec['arch']} {rec['shape']}: skip ({reason})")
+                continue
+            if rec["status"] != "ok":
+                raise AssertionError(f"phase 14 {name} {rec['arch']} {rec['shape']}: "
+                                     f"{rec.get('error', rec)}")
+            mem = rec["memory_analysis"]
+            if rec["device_memory_bytes"] != total or rec["fits"] != (mem["peak_bytes"] <= total):
+                raise AssertionError(f"phase 14 {name}: fits {rec['fits']}, peak "
+                                     f"{mem['peak_bytes']}B against {total}B")
+            cell = {"dry_run": name, **{k: rec[k] for k in (
+                "arch", "shape", "mesh", "kind", "plan", "state_bytes_per_device",
+                "state_parts_bytes", "cost_analysis", "memory_analysis", "collectives", "traffic",
+                "fits", "n_micro_run", "lower_s", "compile_s", "wall_s", "card")}}
+            res["cells"].append(cell)
+            log(f"    {rec['arch']} {rec['shape']} on {rec['mesh']} (world {rec['world']}): "
+                f"state {rec['state_bytes_per_device']}B, flops "
+                f"{rec['cost_analysis']['flops']:.4e}, peak {mem['peak_bytes']}B, fits "
+                f"{rec['fits']} ({total}B); n_micro {rec['plan']['n_micro']} (run "
+                f"{rec['n_micro_run']}); {rec['wall_s']}s")
+    mesh = next(c for c in res["cells"] if c["dry_run"] == "14b_mesh")
+    card_cell = next(c for c in res["cells"] if c["dry_run"] == "14b_card")
+    r0 = tp["per_rank"][0]
+    parts = mesh["state_parts_bytes"]
+    got = (parts["params"], parts["grads"], parts["moments"])
+    want = (r0["param_bytes"], r0["grad_bytes"], r0["moment_bytes"])
+    if got != want:
+        raise AssertionError(f"phase 14b: held parameters, gradients, moments {got} != phase "
+                             f"13's {want}")
+    measured = {k: list(v) for k, v in r0["step_traffic"].items()}
+    if mesh["traffic"] != measured:
+        raise AssertionError(f"phase 14b: collectives {mesh['traffic']} != phase 13's {measured}")
+    ratio = mesh["memory_analysis"]["peak_bytes"] / r0["peak"]
+    if abs(ratio - 1) > DRY_PEAK_TOL:
+        raise AssertionError(f"phase 14b: peak {mesh['memory_analysis']['peak_bytes']}B is "
+                             f"{ratio:.4f} x phase 13's {r0['peak']}B (tolerance {DRY_PEAK_TOL})")
+    res.update(held_equal=True, traffic_equal=True, peak_ratio=ratio,
+               phase11_flops=card_cell["cost_analysis"]["flops"],
+               phase11_bound_flops=training["step_flops"])
+    moved = ", ".join(f"{k} {n} calls {b}B" for k, (n, b) in sorted(mesh["traffic"].items()))
+    log(f"  {card}: 14b predicts phase 13's rank 0 exactly: parameters {got[0]}B, gradients "
+        f"{got[1]}B, moments {got[2]}B; a step's {moved}; peak "
+        f"{mesh['memory_analysis']['peak_bytes']}B against the measured {r0['peak']}B (ratio "
+        f"{ratio:.4f}, tolerance {DRY_PEAK_TOL}); phase 11's step (one card, 2 x 4,096 tokens): "
+        f"{res['phase11_flops']:.4e} flops counted, {res['phase11_bound_flops']:.4e} in the "
+        f"flop bound ({training['bound_ms']:.1f}ms)")
+    return res
+
+
+def serve_worker(rank: int, world: int, workdir: str) -> int:
+    """One rank of phase 14c, run as ``chip_smoke.py --serve-rank R
+    --serve-world W --serve-dir D``: for each of PLACED_CASES, qwen2-0.5b
+    (``init_model(SERVE_SEED)`` on ``cuda:0``) placed on the mesh of a
+    ``gloo`` group, its caches placed by ``cache_sharding``; placed prefill
+    of the prompts in ``D/placed_prompts.pt`` and greedy decode (the prompt
+    token by token, then PLACED_NEW tokens).  Writes this rank's rows of
+    the tokens, its cache bytes and step times to ``D/placed.rankR.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import (NamedSharding, batch_sharding, block_of,
+                                                  cache_sharding, param_sharding)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (abstract_caches, attn_plan, make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models import init_model
+    from repro_torch.models.blocks import init_caches
+    from repro_torch.models.convert import place_model, shape_tree, spec_tree
+
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/placed.rendezvous",
+                            rank=rank, world_size=world)
+    out = {"rank": rank, "cases": []}
+    try:
+        cfg = get_arch(SERVE_ARCH)
+        prompts = torch.load(os.path.join(workdir, "placed_prompts.pt"))
+        max_len = PLACED_PROMPT + PLACED_NEW
+        for shape, b in PLACED_CASES:
+            mesh = make_mesh(shape, ("data", "model"), device="cuda:0")
+            model = init_model(cfg, SERVE_SEED, device="cuda:0")
+            place_model(model, param_sharding(mesh, spec_tree(model),
+                                              shapes_tree=shape_tree(model)))
+            torch.cuda.empty_cache()
+            x = torch.empty((b, 1), device="meta")
+            sh = batch_sharding(mesh, {"t": x})["t"] if b > 1 else \
+                NamedSharding(mesh, (None, None))
+            (n, _), (lo, _) = block_of(x.shape, mesh, sh.placements)
+            tokens = prompts[:b][lo:lo + n].to("cuda:0")
+            c_sh = cache_sharding(mesh, abstract_caches(cfg, b, max_len), cfg.n_kv_heads, b)
+            caches = init_caches(cfg, b, max_len, torch.float32, "cuda:0", sharding=c_sh)
+            held = sum(t.to_local().numel() * t.to_local().element_size()
+                       for t in caches.values())
+            pshape = ShapeConfig("placed", PLACED_PROMPT, b, "prefill")
+            pre = make_prefill_step(cfg, pshape, attn_plan(cfg, pshape), mesh=mesh)
+            first = torch.argmax(pre(model, {"tokens": tokens})[:, -1], dim=-1)
+            step = make_decode_step(cfg, mesh=mesh)
+            tok, new, ms = tokens[:, :1], [], []
+            for t in range(PLACED_PROMPT + PLACED_NEW - 1):
+                col.traffic.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = step(model, tok, caches, t)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if t + 1 < PLACED_PROMPT:
+                    tok = tokens[:, t + 1:t + 2]
+                else:
+                    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+                    new.append(tok)
+            out["cases"].append({
+                "mesh": list(shape), "batch": b, "rows": [lo, lo + n],
+                "coord": list(mesh.get_coordinate()), "prefill_first": first.tolist(),
+                "tokens": torch.cat(new, 1).tolist(), "step_ms": ms, "cache_bytes": held,
+                "step_traffic": {k: list(v) for k, v in col.traffic.items()},
+                "cache_specs": {k: list(map(str, v.spec)) for k, v in c_sh.items()}})
+            del model, caches
+            torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"placed.rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_placed_decode(torch, card, workdir) -> dict:
+    """Phase 14c (module doc): the ranks' greedy tokens against a one-card
+    run (``generate``'s loop on plain caches) of the same weights and
+    prompts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import decode_step, init_caches, init_model, prefill
+
+    cfg = get_arch(SERVE_ARCH)
+    gen = torch.Generator().manual_seed(SERVE_SEED + 14)
+    prompts = torch.randint(0, cfg.vocab, (max(b for _, b in PLACED_CASES), PLACED_PROMPT),
+                            generator=gen, dtype=torch.int32)
+    torch.save(prompts, os.path.join(workdir, "placed_prompts.pt"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--serve-rank", str(r),
+                               "--serve-world", str(TP_RANKS), "--serve-dir", workdir],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(TP_RANKS)]
+    # the one-card run, meanwhile
+    model = init_model(cfg, SERVE_SEED, device="cuda")
+    want = {}
+    with torch.no_grad():
+        for _, b in PLACED_CASES:
+            tokens = prompts[:b].to("cuda")
+            caches = init_caches(cfg, b, PLACED_PROMPT + PLACED_NEW, device="cuda")
+            first = torch.argmax(prefill(model, {"tokens": tokens}, cfg, PLACED_PROMPT)[:, -1],
+                                 dim=-1)
+            tok, new, ms = tokens[:, :1], [], []
+            for t in range(PLACED_PROMPT + PLACED_NEW - 1):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                logits, caches = decode_step(model, tok, caches, t, cfg)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+                if t + 1 < PLACED_PROMPT:
+                    tok = tokens[:, t + 1:t + 2]
+                else:
+                    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+                    new.append(tok)
+            want[b] = {"first": first.tolist(), "tokens": torch.cat(new, 1).tolist(), "ms": ms}
+    del model, caches
+    torch.cuda.empty_cache()
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 14c rank {r} exited {p.returncode}:\n{out[-3000:]}")
+    ranks = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(workdir, f"placed.rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    res = {"wall_s": wall, "cases": []}
+    for i, (shape, b) in enumerate(PLACED_CASES):
+        w = want[b]
+        for rk in ranks:
+            c = rk["cases"][i]
+            lo, hi = c["rows"]
+            if c["tokens"] != w["tokens"][lo:hi] or c["prefill_first"] != w["first"][lo:hi]:
+                raise AssertionError(f"phase 14c {shape} rank {rk['rank']}: greedy tokens "
+                                     f"{c['tokens']} (prefill {c['prefill_first']}) != the "
+                                     f"one-card run's {w['tokens'][lo:hi]} ({w['first'][lo:hi]})")
+            if w["tokens"][lo:hi] and c["prefill_first"] != [row[0] for row in
+                                                             w["tokens"][lo:hi]]:
+                raise AssertionError(f"phase 14c {shape}: prefill's token is not decode's")
+        c0 = ranks[0]["cases"][i]
+        step_ms = float(np.median(c0["step_ms"][1:]))
+        one_ms = float(np.median(w["ms"][1:]))
+        moved = ", ".join(f"{k} {n} calls {b_}B" for k, (n, b_) in
+                          sorted(c0["step_traffic"].items()))
+        case = {"mesh": shape, "batch": b, "tokens_equal": True, "step_ms": step_ms,
+                "one_card_step_ms": one_ms,
+                "cache_bytes": [rk["cases"][i]["cache_bytes"] for rk in ranks],
+                "cache_specs": c0["cache_specs"], "step_traffic": c0["step_traffic"]}
+        res["cases"].append(case)
+        log(f"  {card}: placed decode on {shape}, {b} prompt(s) of {PLACED_PROMPT} tokens, "
+            f"{PLACED_NEW} greedy tokens equal to one card's (prefill's first token too); "
+            f"{step_ms:.1f}ms a token on rank 0 (median of steps 2-{len(c0['step_ms'])}; one "
+            f"card {one_ms:.1f}ms); caches k/v {c0['cache_specs'].get('k')}, a rank holds "
+            f"{case['cache_bytes']}B; a step's {moved}")
+    log(f"  phase 14c: {TP_RANKS} ranks sharing the card, {wall:.2f}s (processes included)")
+    return res
 
 
 def phase_nccl(torch, card, workdir, keep) -> dict:
@@ -2761,6 +3086,9 @@ def main(argv=None) -> int:
     parser.add_argument("--mesh-model", type=int, default=1, help=argparse.SUPPRESS)
     parser.add_argument("--mesh-layers", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--serve-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--serve-world", type=int, default=TP_RANKS, help=argparse.SUPPRESS)
+    parser.add_argument("--serve-dir", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2768,6 +3096,8 @@ def main(argv=None) -> int:
     if args.mesh_rank is not None:  # one rank of phase 12a or 13
         return mesh_worker(args.mesh_rank, args.mesh_world, args.mesh_model, args.mesh_layers,
                            args.mesh_dir)
+    if args.serve_rank is not None:  # one rank of phase 14c
+        return serve_worker(args.serve_rank, args.serve_world, args.serve_dir)
     sys.path.insert(0, str(ROOT / "src"))
     try:
         import repro_torch.core as core
@@ -2873,6 +3203,14 @@ def main(argv=None) -> int:
         ))
     log(f"shard-path launches: {shard_launches}")
 
+    # phase 14's dry runs need the CPU alone: started now, niced, read at
+    # phase 14; stopped and removed at exit, whatever ends the script
+    dry_dir = tempfile.mkdtemp(prefix="smoke_dry_", dir=build_dir)
+    dry_procs = start_dry_runs(dry_dir)
+    atexit.register(shutil.rmtree, dry_dir, ignore_errors=True)
+    for _, _, proc in dry_procs.values():
+        atexit.register(proc.kill)
+
     # the serving path, phase 10: the LM stack has no kernel of its own; its
     # pipeline's lineage queries may launch the joins, counted from zero here
     for w in wrappers.values():
@@ -2920,6 +3258,18 @@ def main(argv=None) -> int:
         log(f"mesh-path launches (its ranks): {tp_launches}")
     keep.clear()
 
+    # placed serving and the dry run, phase 14: no kernel of its own; 14c first,
+    # while the dry runs end
+    for w in wrappers.values():
+        w.launches = 0
+    placed = run_phase(torch, wrappers, "14c placed prefill and decode on a mesh",
+                       lambda: phase_placed_decode(torch, card, dry_dir))
+    dry = run_phase(torch, wrappers, "14a-b dry run on fake process groups",
+                    lambda: phase_dry_run(torch, card, dry_procs, tp, training))
+    dry["placed"] = placed
+    dry_launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"dry-run and placed-serving launches: {dry_launches}")
+
     kernels = []
     for name, rec in main_recs.items():
         kernels.append({
@@ -2945,6 +3295,7 @@ def main(argv=None) -> int:
             "launches_train_path": train_launches[name],
             "launches_dp_path": dp_launches[name],
             "launches_tp_path": tp_launches[name],
+            "launches_dry_path": dry_launches[name],
             **({"ops_ms": rec["ops_ms"]} if "ops_ms" in rec else {}),
         })
     log(f"store: {json.dumps(store)}")
@@ -2953,6 +3304,7 @@ def main(argv=None) -> int:
     log(f"training: {json.dumps(training)}")
     log(f"distributed: {json.dumps(dp)}")
     log(f"mesh: {json.dumps(tp)}")
+    log(f"dry run: {json.dumps(dry)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

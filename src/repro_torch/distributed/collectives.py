@@ -38,7 +38,12 @@ ones GSPMD inserts for the reference:
 They call ``torch.distributed``'s own collectives, which ``gloo`` runs on
 CUDA tensors as well (ranks sharing one card), and never ``DTensor``'s,
 whose functional collectives a ``gloo`` group does not run on CUDA
-tensors.  Each adds the bytes it moves to :data:`traffic`.
+tensors.  Each adds the bytes it moves to :data:`traffic`, and so do
+:func:`all_reduce_mean`, :func:`flash_decode_combine` and
+``optim.adamw.global_norm``.
+
+:func:`mesh_group` gives the process group over several axes of a mesh
+(``("pod", "data")``, the data-parallel ranks of a multi-pod mesh).
 """
 
 from __future__ import annotations
@@ -59,6 +64,8 @@ __all__ = [
     "gather_from_model",
     "gather_full",
     "max_over",
+    "mesh_group",
+    "count",
     "traffic",
 ]
 
@@ -86,11 +93,14 @@ def local_partial_attention(q, k_shard, v_shard, valid):
 def flash_decode_combine(m, l, o, group=None):
     """Merge per-rank (m, l, o) softmax partials over ``group``."""
     m_g = m.clone()
+    count("seq_all_reduce", m_g)
     dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
     corr = torch.exp(m - m_g)
     l_g = l * corr
+    count("seq_all_reduce", l_g)
     dist.all_reduce(l_g, op=dist.ReduceOp.SUM, group=group)
     o_g = o * corr[..., None].to(o.dtype)
+    count("seq_all_reduce", o_g)
     dist.all_reduce(o_g, op=dist.ReduceOp.SUM, group=group)
     return o_g / torch.clamp(l_g, min=1e-30)[..., None].to(o_g.dtype)
 
@@ -136,6 +146,7 @@ def all_reduce_mean(tensors, group=None) -> list:
     out = []
     for bucket in _buckets(list(tensors)):
         flat = torch.cat([t.reshape(-1).float() for t in bucket])
+        count("dp_mean_all_reduce", flat)
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         flat /= world
         for t, v in zip(bucket, flat.split([t.numel() for t in bucket])):
@@ -152,9 +163,39 @@ def all_reduce_mean(tensors, group=None) -> list:
 traffic: dict = {}
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+def count(kind: str, t: torch.Tensor) -> None:
+    """Add one call of ``kind`` moving ``t`` to :data:`traffic`."""
     n, b = traffic.get(kind, (0, 0))
     traffic[kind] = (n + 1, b + t.numel() * t.element_size())
+
+
+_GROUPS: dict = {}
+
+
+def mesh_group(mesh, axes):
+    """The process group of the ranks that differ only on ``axes`` (names
+    of ``mesh``'s dimensions, in mesh order) from this rank: one axis's own
+    group, or for several a group of their flattened coordinates, made
+    once a mesh by every rank of it (``new_subgroups_by_enumeration``)."""
+    names = tuple(mesh.mesh_dim_names)
+    axes = tuple(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    pos = [names.index(a) for a in axes]
+    if pos != sorted(pos):
+        raise ValueError(f"axes {axes} are not in the mesh's order {names}")
+    key = (id(mesh), axes)
+    if key not in _GROUPS:
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+        rest = [i for i in range(len(names)) if i not in pos]
+        size = 1
+        for i in pos:
+            size *= mesh.size(i)
+        with unset_fake_temporarily():  # the mesh's ranks are a real tensor
+            rows = mesh.mesh.permute(rest + pos).reshape(-1, size).tolist()
+        _GROUPS[key] = (mesh, dist.new_subgroups_by_enumeration(rows)[0])
+    return _GROUPS[key][1]
 
 
 def _size(group) -> int:
@@ -181,14 +222,14 @@ class _Zero3Gather(torch.autograd.Function):
     def forward(ctx, x, dim, group):
         ctx.dim, ctx.group = dim, group
         out = _all_gather(x, dim, group)
-        _count("zero3_gather", out)
+        count("zero3_gather", out)
         return out
 
     @staticmethod
     def backward(ctx, g):
         n, dim = _size(ctx.group), ctx.dim
         blocks = torch.cat(g.float().chunk(n, dim=dim), dim=0).contiguous()
-        _count("zero3_reduce_scatter", blocks)
+        count("zero3_reduce_scatter", blocks)
         out = torch.empty((blocks.shape[0] // n,) + tuple(blocks.shape[1:]), dtype=blocks.dtype,
                           device=blocks.device)
         dist.reduce_scatter_tensor(out, blocks, group=ctx.group)
@@ -204,7 +245,7 @@ class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        _count("model_all_reduce", g)
+        count("model_all_reduce", g)
         dist.all_reduce(g, group=ctx.group)
         return g, None
 
@@ -213,7 +254,7 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         x = x.contiguous().clone()
-        _count("model_all_reduce", x)
+        count("model_all_reduce", x)
         dist.all_reduce(x, group=group)
         return x
 
@@ -227,7 +268,7 @@ class _GatherFromModel(torch.autograd.Function):
     def forward(ctx, x, dim, group):
         ctx.dim, ctx.group = dim, group
         out = _all_gather(x, dim, group)
-        _count("model_all_gather", out)
+        count("model_all_gather", out)
         return out
 
     @staticmethod
@@ -267,7 +308,7 @@ def max_over(x, group):
     """The elementwise maximum of ``x`` over ``group`` (not differentiated)."""
     x = x.detach().contiguous().clone()
     if _size(group) > 1:
-        _count("model_all_reduce", x)
+        count("model_all_reduce", x)
         dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     return x
 

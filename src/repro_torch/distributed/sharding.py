@@ -51,6 +51,8 @@ __all__ = [
     "is_placed",
     "local_tensor",
     "local_block",
+    "block_of",
+    "placed_zeros",
 ]
 
 
@@ -60,7 +62,7 @@ class AxisRules(dict):
 
 def _mesh_shape(mesh) -> dict:
     """Axis name → size of a ``DeviceMesh`` (the reference's ``mesh.shape``)."""
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names)}
 
 
 def _entry(e):
@@ -340,13 +342,40 @@ def local_tensor(t):
     return t.to_local() if is_placed(t) else t
 
 
+def block_of(shape, mesh, placements) -> tuple:
+    """``(shape, offset)`` of this rank's block of a tensor of global
+    ``shape`` laid on ``mesh`` by ``placements`` (``DTensor``'s blocks).
+    Plain ints, also under a ``FakeTensorMode`` (the dry run's), whose
+    fake tensors the mesh's own rank tensors must not become."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    with unset_fake_temporarily():
+        local, offset = compute_local_shape_and_global_offset(tuple(shape), mesh, placements)
+    return tuple(int(n) for n in local), tuple(int(o) for o in offset)
+
+
 def local_block(dt, full):
     """The slice of ``full`` (the whole value, a tensor or array) that
     ``dt``'s placements give this rank's mesh coordinate."""
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-
     if tuple(full.shape) != tuple(dt.shape):
         raise ValueError(f"whole value {tuple(full.shape)} for a DTensor of {tuple(dt.shape)}")
-    shape, offset = compute_local_shape_and_global_offset(dt.shape, dt.device_mesh,
-                                                          dt.placements)
+    shape, offset = block_of(dt.shape, dt.device_mesh, dt.placements)
     return full[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+
+
+def placed_zeros(shape, sharding: NamedSharding, dtype, device):
+    """A ``DTensor`` of global ``shape`` laid out by ``sharding``, of which
+    this rank makes only its block, zeros (no whole tensor is made)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    placements = sharding.placements
+    local, _ = block_of(shape, sharding.mesh, placements)
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.insert(0, n)
+        n *= d
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device), sharding.mesh,
+                              placements, run_check=False, shape=shape, stride=tuple(stride))

@@ -19,7 +19,10 @@ so several ranks may share one card.
 ``mesh_coords`` gives a rank its ``(data, model)`` coordinate on a
 ``("data", "model")`` mesh and the mesh's data and model process groups:
 the ranks of its row and of its column, in the mesh's own rank order
-(``local_mesh(m)`` puts global rank ``r`` at ``(r // m, r % m)``).
+(``local_mesh(m)`` puts global rank ``r`` at ``(r // m, r % m)``).  On a
+multi-pod ``("pod", "data", "model")`` mesh the batch lies over ``("pod",
+"data")`` (``default_rules``' ``dp``): the data coordinate is the flat one
+over both, ``pod * D + data``, and the data group spans both axes.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from ..distributed.collectives import mesh_group
 from ..kernels.ops import resolve_device
 
 __all__ = ["make_production_mesh", "make_mesh", "local_mesh", "rank_device", "MeshCoords",
@@ -98,22 +102,29 @@ def local_mesh(model_parallel: int = 1, device="cuda"):
 
 
 class MeshCoords(NamedTuple):
-    """A rank's place on a ``("data", "model")`` mesh."""
+    """A rank's place on a ``("data", "model")`` or ``("pod", "data",
+    "model")`` mesh."""
 
     data: int  # its data coordinate: the block of the global batch it takes
     model: int  # its model coordinate
-    dp: int  # the mesh's data size
+    dp: int  # the mesh's data size (pods times data ranks)
     mp: int  # the mesh's model size
     data_group: object  # the ranks at its model coordinate, by data coordinate
     model_group: object  # the ranks at its data coordinate, by model coordinate
 
 
+MESH_AXES = (("data", "model"), ("pod", "data", "model"))
+
+
 def mesh_coords(mesh) -> MeshCoords:
     """This rank's :class:`MeshCoords` on ``mesh``, whose axes must be
-    ``("data", "model")``."""
-    if tuple(mesh.mesh_dim_names) != ("data", "model"):
-        raise ValueError(f"mesh axes {mesh.mesh_dim_names}, not ('data', 'model')")
-    d, m = mesh.get_coordinate()
-    dp, mp = mesh.mesh.shape
-    return MeshCoords(int(d), int(m), int(dp), int(mp), mesh.get_group("data"),
-                      mesh.get_group("model"))
+    ``("data", "model")`` or ``("pod", "data", "model")`` (module doc)."""
+    names = tuple(mesh.mesh_dim_names)
+    if names not in MESH_AXES:
+        raise ValueError(f"mesh axes {names}, not one of {MESH_AXES}")
+    *dps, m = (int(c) for c in mesh.get_coordinate())
+    *sizes, mp = (mesh.size(i) for i in range(mesh.ndim))
+    data, dp = 0, 1
+    for c, n in zip(dps, sizes):
+        data, dp = data * n + c, dp * n
+    return MeshCoords(data, m, dp, mp, mesh_group(mesh, names[:-1]), mesh.get_group("model"))

@@ -1,28 +1,40 @@
-"""Step functions and input specs shared by the trainer and the server.
+"""Step functions and abstract input and state specs shared by the dry
+run, the trainer and the server.
 
 The port of ``repro.launch.steps``.  ``input_specs`` gives ``meta``-device
-tensors with the shapes and dtypes of one step's batch (no memory is
-allocated).  ``make_train_step`` returns a function that takes
-``lm_loss``'s gradient and applies AdamW to the model's parameters in
-place.  The abstract model, cache and optimizer states of the reference
-serve its dry run, and come with the port's.
+tensors with the shapes and dtypes of one step's batch, and
+``abstract_model``, ``abstract_caches`` and ``abstract_opt_state`` the
+model, its decode caches and its AdamW state on the ``meta`` device (the
+reference's ``jax.eval_shape`` trees: no memory is allocated, so a
+published configuration of 314 B parameters costs nothing).
+``make_train_step`` returns a function that takes ``lm_loss``'s gradient
+and applies AdamW to the model's parameters in place.
 
 ``make_train_step(..., mesh=)`` is the step on a ``("data", "model")``
-mesh, the reference's jitted step under GSPMD: the model's parameters are
-placed on it (``models.convert.place_model``) and each rank passes
-its data coordinate's block of the global batch.  The layers compute on
-the blocks with explicit collectives (``models.layers``): a ZeRO-3
-gather's backward hands each parameter split over the data ranks its
-gradient reduce-scattered and averaged over them; the gradients of the
-parameters the data ranks replicate are averaged over the data group
-after the backward (not over the world: the model ranks already agree);
-nothing is reduced twice.  AdamW runs on the blocks, its clip on the
+or ``("pod", "data", "model")`` mesh, the reference's jitted step under
+GSPMD: the model's parameters are placed on it
+(``models.convert.place_model``) and each rank passes the block of the
+global batch at its flat coordinate over ``("pod", "data")``
+(``default_rules``' ``dp``; ``launch.mesh.mesh_coords``).  The layers
+compute on the blocks with explicit collectives (``models.layers``): a
+ZeRO-3 gather's backward hands each parameter split over the data ranks
+(``fsdp`` is ``data`` alone, so the pods replicate it) its gradient
+reduce-scattered and averaged over them, and that block is then averaged
+over the pod group; the gradients of the parameters the data ranks
+replicate are averaged over ``("pod", "data")`` after the backward (not
+over the world: the model ranks already agree); nothing is reduced twice.  AdamW runs on the blocks, its clip on the
 global norm.  Where the model axis cuts a head or the SSM's fused
 segments, a layer gathers its weights over the model ranks and computes
 whole there (``models.model.replicated_over_model`` names them).  The
 numbers are the one-device step's on the global batch up to float order;
 for an MoE, its ``n_micro = dp`` step (each data rank's router sees its
 own block).
+
+``make_prefill_step(..., mesh=)`` and ``make_decode_step(mesh=)`` serve a
+placed model: the batch block of this rank's data coordinate, the decode
+caches placed by ``cache_sharding`` (``models.blocks.init_caches(...,
+sharding=)``), and the last token's logits gathered whole over the model
+ranks, for ``argmax``.
 """
 
 from __future__ import annotations
@@ -30,13 +42,19 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ArchConfig, ShapeConfig
-from ..distributed.collectives import all_reduce_mean
+from ..distributed.collectives import all_reduce_mean, mesh_group
 from ..distributed.sharding import local_tensor
-from ..models.model import decode_step, lm_loss, prefill
-from ..optim.adamw import AdamWConfig, adamw_update
+from ..models.blocks import cache_shapes
+from ..models.convert import spec_tree
+from ..models.layers import Init
+from ..models.model import LM, decode_step, lm_loss, prefill
+from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
 
 __all__ = [
     "input_specs",
+    "abstract_model",
+    "abstract_caches",
+    "abstract_opt_state",
     "make_train_step",
     "make_prefill_step",
     "make_decode_step",
@@ -89,6 +107,27 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
     return {"tokens": spec((b, s))}
 
 
+def abstract_model(cfg: ArchConfig, dtype=torch.bfloat16):
+    """``(model, logical spec tree)``: ``cfg``'s model with its parameters
+    on the ``meta`` device in ``dtype`` (the SSM's ``A_log``, ``D`` and
+    ``dt_bias`` stay float32, as the reference's), and the reference's
+    spec tree (``convert.spec_tree``)."""
+    model = LM(Init(None, "meta", dtype), cfg)
+    return model, spec_tree(model)
+
+
+def abstract_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
+    """``init_caches``' tree on the ``meta`` device."""
+    return {k: torch.empty(shape, dtype=dt, device="meta")
+            for k, (shape, dt) in cache_shapes(cfg, batch, max_len, dtype).items()}
+
+
+def abstract_opt_state(model) -> dict:
+    """``adamw_init``'s state for ``model``, placed and on the device as
+    its parameters (the ``meta`` device for ``abstract_model``'s)."""
+    return adamw_init(model)
+
+
 def _data_split(p) -> bool:
     """Whether a placed parameter is split over the ``data`` mesh axis."""
     mesh = p.device_mesh
@@ -96,7 +135,8 @@ def _data_split(p) -> bool:
     return p.placements[i].is_shard() and mesh.size(i) > 1
 
 
-def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, plan: dict, mesh=None):
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, plan: dict, mesh=None,
+                    on_micro=None):
     """The full update step ``train_step(model, opt_state, batch)`` →
     ``(model, opt_state, metrics)``, the parameters updated in place.
 
@@ -108,14 +148,20 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, plan: dict, mesh=None
 
     With a ``mesh`` (module doc) the model is placed on it and ``batch`` is
     this rank's data block; the gradients of the parameters replicated
-    over the data ranks are averaged over the data group (in flat float32
-    buckets, ``collectives.all_reduce_mean``), and the reported ``loss``,
-    ``ce`` and ``aux`` are the means over the data ranks of each rank's.
+    over the data ranks are averaged over ``("pod", "data")`` (in flat
+    float32 buckets, ``collectives.all_reduce_mean``), those split over
+    the data ranks over the pods, and the reported ``loss``, ``ce`` and
+    ``aux`` are the means over ``("pod", "data")`` of each rank's.
     """
     n_micro = int(plan.get("n_micro", 1))
-    data_group = None
-    if mesh is not None and mesh.size(mesh.mesh_dim_names.index("data")) > 1:
-        data_group = mesh.get_group("data")
+    dp_group = pod_group = None
+    if mesh is not None:
+        names = mesh.mesh_dim_names
+        dp_axes = tuple(a for a in ("pod", "data") if a in names)
+        if any(mesh.size(names.index(a)) > 1 for a in dp_axes):
+            dp_group = mesh_group(mesh, dp_axes)
+        if "pod" in names and mesh.size(names.index("pod")) > 1:
+            pod_group = mesh.get_group("pod")
 
     def grads_of(model, params, batch):
         total, (ce, aux) = lm_loss(model, batch, cfg, mode=plan["mode"], chunk=plan["chunk"])
@@ -139,33 +185,53 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, plan: dict, mesh=None
                     local_tensor(acc).add_(local_tensor(gi).float())
                 ce, aux = ce + ce_i, aux + aux_i
                 del g
+                if on_micro is not None:
+                    on_micro(i)
             grads = [g / n_micro for g in grads]
             ce, aux = ce / n_micro, aux / n_micro
             loss = ce
-        if data_group is not None:
+        if dp_group is not None:
             with torch.no_grad():
-                blocks = [local_tensor(g) for p, g in zip(params, grads) if not _data_split(p)]
-                for g, mean in zip(blocks, all_reduce_mean(blocks, data_group)):
-                    if mean is not g:
-                        g.copy_(mean)
+                for split, group in ((False, dp_group), (True, pod_group)):
+                    blocks = [local_tensor(g) for p, g in zip(params, grads)
+                              if _data_split(p) == split]
+                    if group is None or not blocks:
+                        continue
+                    for g, mean in zip(blocks, all_reduce_mean(blocks, group)):
+                        if mean is not g:
+                            g.copy_(mean)
             loss, ce, aux = all_reduce_mean([torch.stack([loss, ce, aux]).float()],
-                                            data_group)[0]
+                                            dp_group)[0]
         model, opt_state, metrics = adamw_update(model, grads, opt_state, opt_cfg)
         return model, opt_state, {**metrics, "loss": loss, "ce": ce, "aux": aux}
 
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, plan: dict):
+def _on_mesh(model, mesh) -> None:
+    p = next(model.parameters())
+    if mesh is not None and getattr(p, "device_mesh", None) != mesh:
+        raise ValueError("the model is not placed on this mesh (models.convert.place_model)")
+
+
+def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, plan: dict, mesh=None):
+    """``prefill_step(model, batch)`` → the last token's logits [B, 1, V];
+    with a ``mesh``, of this rank's batch block, gathered over the model
+    ranks (module doc)."""
     def prefill_step(model, batch):
+        _on_mesh(model, mesh)
         return prefill(model, batch, cfg, shape.seq_len, mode=plan["mode"],
                        chunk=plan["chunk"])
 
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, mesh=None):
+    """``serve_step(model, token, caches, cur_len)`` → ``(logits, caches)``;
+    with a ``mesh``, on this rank's batch block and cache blocks, the
+    logits gathered over the model ranks (module doc)."""
     def serve_step(model, token, caches, cur_len):
+        _on_mesh(model, mesh)
         return decode_step(model, token, caches, cur_len, cfg)
 
     return serve_step

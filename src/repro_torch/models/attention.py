@@ -20,21 +20,35 @@ model rank and each rank takes the KV heads of its query heads; where it
 cuts a query head (qwen2-0.5b's 14 heads over 4), the whole layer is
 computed on every model rank.  Those weights are gathered over the model
 ranks, and ``gathered_over_model`` names them.
+
+Decode on a mesh takes the caches placed by ``cache_sharding``.  Where
+they hold this rank's KV heads (KV heads over ``model``), it computes its
+own query and KV heads as training does.  Where they hold a block of the
+sequence (over ``model``, or at batch 1 over the data axes and ``model``
+together: ``SeqBlock``), every rank computes every head of the new token
+(its column blocks gathered over the model ranks), the rank whose block
+holds position ``cur_len`` writes the new K/V, each attends its block
+(``collectives.local_partial_attention``) and the softmax partials are
+merged over the ranks that split the sequence
+(``collectives.flash_decode_combine``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.collectives import copy_to_model
+from ..distributed.collectives import (copy_to_model, flash_decode_combine, gather_from_model,
+                                       local_partial_attention)
 from ..distributed.sharding import hint
 from .layers import (Dense, Init, apply_rope, dense, enter_model, model_group, model_rank,
                      model_size, model_split)
 
 __all__ = ["Attention", "attention_block", "decode_attention_block", "attention_split",
-           "gathered_over_model", "NEG_INF", "GLOBAL_WINDOW"]
+           "gathered_over_model", "SeqBlock", "NEG_INF", "GLOBAL_WINDOW"]
 
 NEG_INF = -1e30
 GLOBAL_WINDOW = 1 << 30  # "no window" sentinel: one code path for local/global
@@ -221,13 +235,47 @@ def attention_block(
     return y
 
 
+class SeqBlock(NamedTuple):
+    """The block of a sequence-split decode cache this rank holds."""
+
+    start: int  # the global position of its first row
+    group: object  # the ranks that split the sequence
+
+
+def _decode_qkv(p: Attention, x, cfg, local_heads: bool):
+    """The new token's q, k, v: this rank's heads when ``local_heads``,
+    else every head on every model rank."""
+    split, n_q, n_kv = attention_split(p, cfg)
+    hd = cfg.hd
+    if local_heads:
+        if split != "heads":
+            raise ValueError(f"the cache holds this rank's KV heads, the weights split as {split}")
+        xq = enter_model(x, p.q.w)
+        return (_split_heads(dense(p.q, xq), n_q, hd), _split_heads(dense(p.k, xq), n_kv, hd),
+                _split_heads(dense(p.v, xq), n_kv, hd))
+    if split == "whole":
+        q = dense(p.q, x, True)
+    else:  # this rank's query heads, then every rank's
+        q = gather_from_model(dense(p.q, enter_model(x, p.q.w)), 2, model_group(p.q.w))
+    if split == "heads":
+        xk = enter_model(x, p.k.w)
+        k = gather_from_model(dense(p.k, xk), 2, model_group(p.k.w))
+        v = gather_from_model(dense(p.v, xk), 2, model_group(p.k.w))
+    else:
+        k, v = dense(p.k, x, True), dense(p.v, x, True)
+    return (_split_heads(q, cfg.n_heads, hd), _split_heads(k, cfg.n_kv_heads, hd),
+            _split_heads(v, cfg.n_kv_heads, hd))
+
+
 def decode_attention_block(p: Attention, x, cfg, cache_k, cache_v, cur_len: int, *,
-                           window=None):
+                           window=None, seq: SeqBlock | None = None):
     """Single-token decode against a fixed-size KV cache.
 
-    x: [B, 1, D]; cache_k/v: [B, T, Kv, hd]; ``cur_len``: tokens
-    [0, cur_len) are valid, the new token is written at ``cur_len``, in
-    place.  Returns (y [B,1,D], cache_k, cache_v).
+    x: [B, 1, D]; cache_k/v: [B, T, Kv, hd] (on a mesh this rank's block:
+    its KV heads, or with ``seq`` its rows of the sequence from
+    ``seq.start``); ``cur_len``: tokens [0, cur_len) are valid, the new
+    token is written at ``cur_len``, in place.  Returns (y [B,1,D],
+    cache_k, cache_v).
     """
     b = x.shape[0]
     hd = cfg.hd
@@ -235,25 +283,39 @@ def decode_attention_block(p: Attention, x, cfg, cache_k, cache_v, cur_len: int,
     if window is None:
         window = GLOBAL_WINDOW
     dev = x.device
+    local_heads = cache_k.shape[2] != cfg.n_kv_heads
     pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=dev)
-    q = _split_heads(dense(p.q, x), cfg.n_heads, hd)
-    k = _split_heads(dense(p.k, x), cfg.n_kv_heads, hd)
-    v = _split_heads(dense(p.v, x), cfg.n_kv_heads, hd)
+    q, k, v = _decode_qkv(p, x, cfg, local_heads)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    cache_k[:, cur_len] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, cur_len] = v[:, 0].to(cache_v.dtype)
-    g = cfg.n_heads // cfg.n_kv_heads
-    kpos = torch.arange(t, dtype=torch.int32, device=dev)
+    t0 = 0 if seq is None else seq.start
+    if t0 <= cur_len < t0 + t:  # this block holds the new token's row
+        cache_k[:, cur_len - t0] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, cur_len - t0] = v[:, 0].to(cache_v.dtype)
+    n_q, n_kv = q.shape[2], k.shape[2]
+    g = n_q // n_kv
+    kpos = torch.arange(t0, t0 + t, dtype=torch.int32, device=dev)
     valid = (kpos <= cur_len) & (kpos > cur_len - window)
     scale = hd**-0.5
     # grouped einsum against the *unrepeated* cache (decode is memory-bound:
     # never materialize a repeated cache)
-    qg = q.reshape(b, 1, cfg.n_kv_heads, g, hd)
-    scores = torch.einsum("bqkgd,btkd->bkgqt", qg, cache_k.to(qg.dtype)) * scale
-    bias = torch.zeros(t, dtype=torch.float32, device=dev).masked_fill(~valid, NEG_INF)
-    scores = scores.float() + bias
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgqt,btkd->bqkgd", w, cache_v.to(x.dtype))
-    y = dense(p.o, out.reshape(b, 1, cfg.n_heads * hd))
+    if seq is None:
+        qg = q.reshape(b, 1, n_kv, g, hd)
+        scores = torch.einsum("bqkgd,btkd->bkgqt", qg, cache_k.to(qg.dtype)) * scale
+        bias = torch.zeros(t, dtype=torch.float32, device=dev).masked_fill(~valid, NEG_INF)
+        scores = scores.float() + bias
+        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bkgqt,btkd->bqkgd", w, cache_v.to(x.dtype)).reshape(b, 1, n_q * hd)
+    else:  # a query head group's g heads take the partials' query axis
+        qg = q.reshape(b, n_kv, g, hd)
+        m, l, o = local_partial_attention(qg, cache_k.to(qg.dtype).transpose(1, 2),
+                                          cache_v.to(qg.dtype).transpose(1, 2),
+                                          valid.expand(b, t))
+        out = flash_decode_combine(m, l, o, seq.group).to(x.dtype).reshape(b, 1, n_q * hd)
+    split, n_own, _ = attention_split(p, cfg)
+    if local_heads or split == "whole":
+        y = dense(p.o, out, split == "whole")
+    else:  # every head here: the rows of o this rank holds take its heads
+        lo = model_rank(p.o.w) * n_own * hd
+        y = dense(p.o, out[..., lo:lo + n_own * hd])
     return hint(y, "hidden"), cache_k, cache_v

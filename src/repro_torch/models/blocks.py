@@ -37,9 +37,11 @@ from torch.utils.checkpoint import (
 )
 
 from ..configs.base import ArchConfig
-from ..distributed.sharding import hint
+from ..distributed.collectives import mesh_group
+from ..distributed.sharding import block_of, hint, is_placed, local_tensor, placed_zeros
 from ..kernels.ops import resolve_device
-from .attention import GLOBAL_WINDOW, Attention, attention_block, decode_attention_block
+from .attention import (GLOBAL_WINDOW, Attention, SeqBlock, attention_block,
+                        decode_attention_block)
 from .layers import MLP, Init, RMSNorm, mlp, rmsnorm
 from .moe import MoE, moe_apply
 from .ssm import SSM, ssm_apply, ssm_decode, ssm_state_shapes
@@ -50,7 +52,9 @@ __all__ = [
     "layer_decode",
     "stack_apply",
     "stack_decode",
+    "seq_block",
     "layer_windows",
+    "cache_shapes",
     "init_caches",
 ]
 
@@ -104,9 +108,11 @@ def layer_apply(p: Layer, x, cfg: ArchConfig, window: int, *, mode="auto", chunk
     return x + y, aux
 
 
-def layer_decode(p: Layer, x, cfg: ArchConfig, window: int, cache: dict, cur_len: int):
+def layer_decode(p: Layer, x, cfg: ArchConfig, window: int, cache: dict, cur_len: int,
+                 seq: SeqBlock | None = None):
     """One block, one token.  ``cache`` holds this layer's slices of the
-    stacked caches (views), written in place."""
+    stacked caches (views; on a mesh, of this rank's blocks), written in
+    place; ``seq`` the sequence block of a sequence-split KV cache."""
     if cfg.family == "ssm":
         h = rmsnorm(p.norm1, x, cfg.norm_eps)
         y, conv_s, ssm_s = ssm_decode(p.ssm, h, cfg, cache["conv"], cache["ssm"])
@@ -118,7 +124,7 @@ def layer_decode(p: Layer, x, cfg: ArchConfig, window: int, cache: dict, cur_len
         return x
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
     a, _, _ = decode_attention_block(
-        p.attn, h, cfg, cache["k"], cache["v"], cur_len, window=window
+        p.attn, h, cfg, cache["k"], cache["v"], cur_len, window=window, seq=seq
     )
     if cfg.family == "hybrid":
         y, conv_s, ssm_s = ssm_decode(p.ssm, h, cfg, cache["conv"], cache["ssm"])
@@ -177,32 +183,60 @@ def stack_apply(layers: nn.ModuleList, x, cfg: ArchConfig, *, mode="auto", chunk
     return x, aux
 
 
+def seq_block(cache) -> SeqBlock | None:
+    """The sequence block of a KV cache [L, B, T, Kv, hd] placed with its
+    ``T`` split (``cache_sharding``'s sequence-parallel cache), or None."""
+    if not is_placed(cache):
+        return None
+    mesh = cache.device_mesh
+    axes = [mesh.mesh_dim_names[i] for i, pl in enumerate(cache.placements)
+            if pl.is_shard(2) and mesh.size(i) > 1]
+    if not axes:
+        return None
+    _, offset = block_of(cache.shape, mesh, cache.placements)
+    return SeqBlock(int(offset[2]), mesh_group(mesh, axes))
+
+
 def stack_decode(layers: nn.ModuleList, x, cfg: ArchConfig, caches: dict, cur_len: int):
     """One-token decode through all layers; ``caches`` (leading L axis) are
-    written in place, and ``caches["len"]`` becomes ``cur_len + 1``."""
+    written in place, and ``caches["len"]`` becomes ``cur_len + 1``.  On a
+    mesh, placed caches (``init_caches(..., sharding=)``): each rank
+    reads and writes its blocks."""
     kinds = [k for k in ("k", "v", "conv", "ssm") if k in caches]
+    local = {k: local_tensor(caches[k]) for k in kinds}
+    seq = seq_block(caches["k"]) if "k" in caches else None
     for i, (lp, win) in enumerate(zip(layers, layer_windows(cfg))):
-        x = layer_decode(lp, x, cfg, win, {k: caches[k][i] for k in kinds}, cur_len)
+        x = layer_decode(lp, x, cfg, win, {k: local[k][i] for k in kinds}, cur_len, seq)
     if "len" in caches:
-        caches["len"].fill_(cur_len + 1)
+        local_tensor(caches["len"]).fill_(cur_len + 1)
     return x, caches
 
 
-def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.float32,
-                device="cuda") -> dict:
-    """Decode caches with leading layer axis (the reference's layout):
-    ``k``/``v`` [L, B, T, Kv, hd], ``len`` [L] int32, ``conv``
-    [L, B, d_conv-1, CH] and ``ssm`` [L, B, H, N, P] float32."""
-    dev = resolve_device(device)
+def cache_shapes(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.float32) -> dict:
+    """``{kind: (shape, dtype)}`` of ``init_caches``' tensors."""
     L = cfg.n_layers
-    cache = {}
+    out = {}
     if cfg.family != "ssm":
         shape = (L, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
-        cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
-        cache["len"] = torch.zeros((L,), dtype=torch.int32, device=dev)
+        out["k"] = (shape, dtype)
+        out["v"] = (shape, dtype)
+        out["len"] = ((L,), torch.int32)
     if cfg.family in ("ssm", "hybrid"):
         conv_shape, ssm_shape = ssm_state_shapes(cfg, batch)
-        cache["conv"] = torch.zeros((L,) + conv_shape, dtype=dtype, device=dev)
-        cache["ssm"] = torch.zeros((L,) + ssm_shape, dtype=torch.float32, device=dev)
-    return cache
+        out["conv"] = ((L,) + conv_shape, dtype)
+        out["ssm"] = ((L,) + ssm_shape, torch.float32)
+    return out
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.float32,
+                device="cuda", sharding=None) -> dict:
+    """Decode caches with leading layer axis (the reference's layout):
+    ``k``/``v`` [L, B, T, Kv, hd], ``len`` [L] int32, ``conv``
+    [L, B, d_conv-1, CH] and ``ssm`` [L, B, H, N, P] float32, zeros.  With
+    ``sharding`` (``distributed.sharding.cache_sharding``'s tree), each is a
+    ``DTensor`` of which this rank holds only its block."""
+    dev = resolve_device(device)
+    specs = cache_shapes(cfg, batch, max_len, dtype)
+    if sharding is None:
+        return {k: torch.zeros(shape, dtype=dt, device=dev) for k, (shape, dt) in specs.items()}
+    return {k: placed_zeros(shape, sharding[k], dt, dev) for k, (shape, dt) in specs.items()}

@@ -178,7 +178,7 @@ def shape_tree(module: nn.Module) -> dict:
     return tree
 
 
-def place_model(model: nn.Module, sharding: dict) -> nn.Module:
+def place_model(model: nn.Module, sharding: dict, device=None) -> nn.Module:
     """Replace each of ``model``'s parameters by a ``DTensor`` and return
     the model.  ``sharding`` is ``param_sharding(mesh, spec_tree(model),
     shapes_tree=shape_tree(model))``, the reference's ``jax.device_put``
@@ -186,8 +186,13 @@ def place_model(model: nn.Module, sharding: dict) -> nn.Module:
     layer axis of a stacked leaf (which no rule splits).  Every rank holds
     the whole value (the same seeded ``init_model``), so each keeps the
     block of its mesh coordinate and nothing is sent
-    (``src_data_rank=None``); the whole tensors are freed."""
+    (``src_data_rank=None``); the whole tensors are freed.  A model on the
+    ``meta`` device (``launch.steps.abstract_model``) gets blocks of zeros
+    on ``device`` instead, and no whole tensor is made (under a
+    ``FakeTensorMode``, fake ones: the dry run's)."""
     from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from ..distributed.sharding import placed_zeros
 
     for mod_name, mod in model.named_modules():
         for pname, p in list(mod.named_parameters(recurse=False)):
@@ -198,12 +203,15 @@ def place_model(model: nn.Module, sharding: dict) -> nn.Module:
             if any(e is not None for e in node.spec[:len(indices)]):
                 raise ValueError(f"{'/'.join(path)}: a rule splits the stacked layer axis")
             mesh = node.mesh
-            placements = NamedSharding(mesh, node.spec[len(indices):]).placements
-            dt = distribute_tensor(p.detach(), mesh, placements, src_data_rank=None)
-            # a block split on its leading dimension is a view of the whole
-            # tensor: a copy of its own lets the whole one go
-            dt = DTensor.from_local(dt.to_local().clone(), mesh, dt.placements, run_check=False,
-                                    shape=dt.shape, stride=dt.stride())
+            named = NamedSharding(mesh, node.spec[len(indices):])
+            if p.is_meta:
+                dt = placed_zeros(p.shape, named, p.dtype, device)
+            else:
+                dt = distribute_tensor(p.detach(), mesh, named.placements, src_data_rank=None)
+                # a block split on its leading dimension is a view of the
+                # whole tensor: a copy of its own lets the whole one go
+                dt = DTensor.from_local(dt.to_local().clone(), mesh, dt.placements,
+                                        run_check=False, shape=dt.shape, stride=dt.stride())
             setattr(mod, pname, nn.Parameter(dt, requires_grad=p.requires_grad))
     return model
 

@@ -20,9 +20,11 @@ the tokens of its rows (the others give zeros) and the lookups are summed
 over the model ranks; the head gives this rank's block of the vocab
 (``forward``'s logits), padded ids masked by their global id; and
 ``lm_loss``'s cross-entropy reduces the maximum, the sum of exponentials
-and the label's logit over the model ranks.  The tied table takes both
+and the label's logit over the model ranks (``_VocabParallelNLL``).  The tied table takes both
 gradients in one block.  ``replicated_over_model`` names the weights
-split over the model ranks that a layer computes whole.
+split over the model ranks that a layer computes whole.  ``prefill`` and
+``decode_step`` gather the last token's logits over the model ranks, so
+they return every vocab id (for ``argmax``).
 """
 
 from __future__ import annotations
@@ -150,21 +152,44 @@ def forward(model: LM, batch: dict, cfg: ArchConfig, *, mode="auto", chunk=512):
     return logits, aux
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-position cross-entropy from this rank's block of the vocab
+    (Megatron's vocab-parallel cross-entropy): the maximum, the sum of
+    exponentials and the label's logit are reduced over the model group;
+    the backward is ``softmax - onehot`` on this rank's block, written into
+    the softmax the forward keeps (one vocab-sized buffer, where autograd's
+    own graph would add two gradients of the logits)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, group):
+        z = logits - max_over(logits.amax(dim=-1), group)[..., None]
+        soft = torch.exp(z)
+        sumexp = reduce_from_model(soft.sum(dim=-1), group)
+        n = logits.shape[-1]
+        ids = labels.long() - lo
+        inside = (ids >= 0) & (ids < n)
+        ids = ids.clamp(0, n - 1)[..., None]
+        picked = torch.take_along_dim(z, ids, dim=-1)[..., 0]
+        picked = reduce_from_model(torch.where(inside, picked, 0.0), group)
+        del z
+        soft /= sumexp[..., None]
+        ctx.save_for_backward(soft, ids, inside)
+        return torch.log(sumexp) - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        soft, ids, inside = ctx.saved_tensors
+        grad = soft.scatter_add_(-1, ids, -inside[..., None].to(soft.dtype))
+        return grad.mul_(g[..., None]), None, None, None
+
+
 def _nll(logits, labels, lo=0, group=None):
     """Per-position cross-entropy.  With a model ``group``, ``logits`` is
-    this rank's block of the vocab from id ``lo``: the maximum, the sum of
-    exponentials and the label's logit are reduced over the group."""
+    this rank's block of the vocab from id ``lo`` (``_VocabParallelNLL``)."""
     if group is None:
         lp = torch.log_softmax(logits, dim=-1)
         return -torch.take_along_dim(lp, labels[..., None].long(), dim=-1)[..., 0]
-    z = logits - max_over(logits.amax(dim=-1), group)[..., None]
-    sumexp = reduce_from_model(torch.exp(z).sum(dim=-1), group)
-    n = logits.shape[-1]
-    ids = labels.long() - lo
-    inside = (ids >= 0) & (ids < n)
-    picked = torch.take_along_dim(z, ids.clamp(0, n - 1)[..., None], dim=-1)[..., 0]
-    picked = reduce_from_model(torch.where(inside, picked, 0.0), group)
-    return torch.log(sumexp) - picked
+    return _VocabParallelNLL.apply(logits, labels, lo, group)
 
 
 def lm_loss(model: LM, batch: dict, cfg: ArchConfig, *, mode="auto", chunk=512,
@@ -214,7 +239,14 @@ def prefill(model: LM, batch: dict, cfg: ArchConfig, max_len: int, *, mode="auto
     ``decode_step``, which owns their layout (a fused prefill is perf work
     for later)."""
     logits, _ = forward(model, batch, cfg, mode=mode, chunk=chunk)
-    return logits[:, -1:, :]
+    return _whole_vocab(model, cfg, logits[:, -1:, :])
+
+
+def _whole_vocab(model: LM, cfg, logits):
+    """Logits over every vocab id: gathered over the model ranks when
+    they split the vocab."""
+    _, group = vocab_block(model, cfg)
+    return logits if group is None else gather_from_model(logits.contiguous(), 2, group)
 
 
 @torch.no_grad()
@@ -223,9 +255,10 @@ def decode_step(model: LM, token, caches: dict, cur_len: int, cfg: ArchConfig):
 
     token: [B, 1] int; caches: stacked per-layer dict (``init_caches``),
     written in place; cur_len: the position of ``token`` (same for all
-    layers).  Returns (logits [B, 1, V], caches).
+    layers).  Returns (logits [B, 1, V], caches); on a mesh, the logits of
+    this rank's batch block over every vocab id.
     """
     x = _embed_tokens(model, token, cfg)
     h, caches = stack_decode(model.layers, x, cfg, caches, cur_len)
     h = rmsnorm(model.final_norm, h, cfg.norm_eps)
-    return _head(model, h, cfg), caches
+    return _whole_vocab(model, cfg, _head(model, h, cfg)), caches

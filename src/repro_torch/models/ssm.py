@@ -12,7 +12,12 @@ On a mesh the block is computed whole on every model rank: the fused
 ``in_proj``'s contiguous column blocks (and ``conv_w``/``conv_b``'s
 channel blocks) cut across its z/x/B/C/dt segments, so its weights split
 over the model ranks are gathered there (``gathered_over_model``), as
-GSPMD reshards them for the reference.
+GSPMD reshards them for the reference.  Decode does the same, on the
+states ``cache_sharding`` places: heads (``ssm``) and channels (``conv``)
+over the model ranks where they divide.  It gathers this rank's blocks of
+the states over the model ranks, computes the step whole, and keeps this
+rank's blocks of the new states, so a rank holds the spec's bytes between
+steps.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.collectives import gather_from_model
 from ..distributed.sharding import hint
-from .layers import Dense, Init, RMSNorm, dense, model_split, rmsnorm, weight
+from .layers import (Dense, Init, RMSNorm, dense, model_group, model_rank, model_split, rmsnorm,
+                     weight)
 
 __all__ = ["SSM", "ssm_apply", "ssm_decode", "ssm_state_shapes", "gathered_over_model"]
 
@@ -139,19 +146,35 @@ def ssm_state_shapes(cfg, batch):
     )
 
 
+def _whole_state(x, dim: int, full: int, w):
+    """A state block gathered over ``w``'s model ranks on ``dim`` (``x``
+    itself when it is whole)."""
+    return x if x.shape[dim] == full else gather_from_model(x, dim, model_group(w))
+
+
+def _own_block(x, dim: int, n: int, w):
+    """This rank's block of ``n`` rows of a whole state on ``dim``."""
+    return x if x.shape[dim] == n else x.narrow(dim, model_rank(w) * n, n)
+
+
 def ssm_decode(p: SSM, x, cfg, conv_state, ssm_state):
     """One-token decode.  x: [B, 1, D] → (y, conv_state, ssm_state), the
-    states new tensors."""
+    states new tensors of the shapes given (on a mesh, this rank's blocks:
+    module doc)."""
     s_cfg = cfg.ssm
     b = x.shape[0]
     d_inner, n_heads, n_groups, conv_ch = _dims(cfg)
     hd, n = s_cfg.head_dim, s_cfg.d_state
+    w = p.in_proj.w
+    conv_block, heads_block = conv_state.shape[-1], ssm_state.shape[1]
+    conv_state = _whole_state(conv_state, 2, conv_ch, w)
+    ssm_state = _whole_state(ssm_state, 1, n_heads, w)
 
-    z, xBC, dt = _split_proj(cfg, dense(p.in_proj, x))
+    z, xBC, dt = _split_proj(cfg, dense(p.in_proj, x, whole=True))
     xBC = xBC[:, 0]  # [B,CH]
     window = torch.cat([conv_state, xBC[:, None, :]], dim=1)  # [B,K,CH]
-    conv_out = torch.einsum("bkc,kc->bc", window.float(), p.conv_w.float())
-    xBC = F.silu(conv_out + p.conv_b.float()).to(x.dtype)
+    conv_out = torch.einsum("bkc,kc->bc", window.float(), weight(p.conv_w, whole=True).float())
+    xBC = F.silu(conv_out + weight(p.conv_b, whole=True).float()).to(x.dtype)
     new_conv_state = window[:, 1:]
 
     xh, B_ssm, C_ssm = torch.tensor_split(xBC, [d_inner, d_inner + n_groups * n], dim=-1)
@@ -159,15 +182,16 @@ def ssm_decode(p: SSM, x, cfg, conv_state, ssm_state):
     B_ssm = B_ssm.reshape(b, n)[:, None, :].float()  # G=1 → [B,1,N]
     C_ssm = C_ssm.reshape(b, n)[:, None, :].float()
 
-    dt1 = F.softplus(dt[:, 0].float() + p.dt_bias)  # [B,H]
-    a = -torch.exp(p.A_log)
+    dt1 = F.softplus(dt[:, 0].float() + weight(p.dt_bias))  # [B,H]
+    a = -torch.exp(weight(p.A_log))
     decay = torch.exp(dt1 * a)  # [B,H]
     xdt = xh * dt1[..., None]  # [B,H,P]
     new_state = ssm_state * decay[:, :, None, None] + torch.einsum(
         "bgn,bhp->bhnp", B_ssm, xdt
     )
     y = torch.einsum("bgn,bhnp->bhp", C_ssm, new_state)  # [B,H,P]
-    y = y + p.D[None, :, None] * xh
+    y = y + weight(p.D)[None, :, None] * xh
     y = y.reshape(b, 1, d_inner).to(x.dtype)
     y = rmsnorm(p.norm, y * F.silu(z))
-    return hint(dense(p.out_proj, y), "hidden"), new_conv_state, new_state
+    return (hint(dense(p.out_proj, y, whole=True), "hidden"),
+            _own_block(new_conv_state, 2, conv_block, w), _own_block(new_state, 1, heads_block, w))

@@ -23,6 +23,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..distributed.collectives import count
 from ..distributed.sharding import is_placed, local_tensor
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "cosine_schedule"]
@@ -60,7 +61,8 @@ def global_norm(tensors) -> torch.Tensor:
     A ``DTensor`` counts each entry of its global value once: the sums of
     squares of the blocks are added over the mesh dimensions that split
     it (one ``all_reduce`` a set of such dimensions, over each of their
-    groups), and not over those that replicate it."""
+    groups, counted in ``collectives.traffic``), and not over those that
+    replicate it."""
     plain, split = [], {}
     for x in tensors:
         sq = torch.sum(torch.square(local_tensor(x).float()))
@@ -74,6 +76,7 @@ def global_norm(tensors) -> torch.Tensor:
     total = sum(plain)
     for (mesh, dims), sq in split.items():
         for i in dims:
+            count("norm_all_reduce", sq)
             dist.all_reduce(sq, group=mesh.get_group(i))
         total = total + sq
     return torch.sqrt(total)

@@ -114,3 +114,15 @@ def tp2_cfg(configs, name):
     if dispatch is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=dispatch))
     return cfg
+
+# placed serving (test_torch_placed_serve.py): (mesh, global batch) cases —
+# KV heads over the model ranks (2x2), the sequence over them (1x4), the
+# batch alone (4x1) and at batch 1 the sequence over ("data", "model")
+# (1x4); prompts of SERVE_PROMPT tokens, SERVE_NEW greedy tokens, caches of
+# SERVE_MAX_LEN rows (a multiple of 4: the split sequence)
+SERVE_CASES = (("2x2", 4), ("1x4", 4), ("4x1", 4), ("1x4", 1))
+SERVE_ARCHS = tuple(a for a in ARCHS if a != "hubert-xlarge")
+SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 8, 4, 16
+# the pod axis: a (2, 1, 2) ("pod", "data", "model") mesh, DP_STEPS steps
+POD_MESH = ((2, 1, 2), ("pod", "data", "model"))
+POD_ARCHS = ("qwen2-0.5b", "qwen2-moe-a2.7b")

@@ -529,8 +529,193 @@ def task_tp2(rank, world, io):
     return {"lo": {k: int(res[f"{k}/lo"]) for k in K.TP2_LM}}
 
 
+# --------------------------------------------------------------------------- #
+# placed serving, the pod axis and the dry run's traffic
+# (test_torch_placed_serve.py, test_torch_dryrun.py)
+# --------------------------------------------------------------------------- #
+def _rows(mesh, b) -> slice:
+    """This rank's rows of a batch of ``b`` (``batch_sharding``'s block;
+    the whole batch at ``b == 1``, as the reference's token)."""
+    from repro_torch.distributed.sharding import NamedSharding, batch_sharding, block_of
+
+    x = torch.empty((b, 1), device="meta")
+    sh = batch_sharding(mesh, {"t": x})["t"] if b > 1 else NamedSharding(mesh, (None, None))
+    (n, _), (o, _) = block_of(x.shape, mesh, sh.placements)
+    return slice(o, o + n)
+
+
+def _placed_caches(cfg, mesh, b, max_len, dtype=torch.float32, device="cpu"):
+    """Decode caches placed by ``cache_sharding``: this rank's blocks."""
+    from repro_torch.distributed.sharding import cache_sharding
+    from repro_torch.launch.steps import abstract_caches
+    from repro_torch.models.blocks import init_caches
+
+    sh = cache_sharding(mesh, abstract_caches(cfg, b, max_len), cfg.n_kv_heads, b)
+    return init_caches(cfg, b, max_len, dtype, device, sharding=sh)
+
+
+def task_serve(rank, world, io):
+    """Every decoder at ``reduced()`` (``init_model(seed 0)``) on each
+    ``SERVE_CASES`` mesh: placed prefill of the prompts and greedy decode
+    (the prompt fed token by token, then ``SERVE_NEW`` tokens) on placed
+    caches; this rank's rows of the logits and tokens to
+    ``IO/serve.<mesh>.b<B>.<arch>.rank<R>.npz``."""
+    import _dist_cases as K
+    import repro_torch.configs as tconfigs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import attn_plan, make_decode_step, make_prefill_step
+    from repro_torch.models import init_model
+
+    inp = np.load(os.path.join(io, "serve_inputs.npz"))
+    meshes = {m: make_mesh(*K.MESHES[m], device="cpu") for m, _ in K.SERVE_CASES}
+    out = {}
+    for m, b in K.SERVE_CASES:
+        mesh = meshes[m]
+        rows = _rows(mesh, b)
+        for arch in K.SERVE_ARCHS:
+            cfg = tconfigs.get_arch(arch).reduced()
+            model = _place(init_model(cfg, 0, device="cpu"), mesh)
+            tokens = torch.from_numpy(inp[f"{arch}/tokens"][:b][rows])
+            batch = {"tokens": tokens}
+            if cfg.frontend == "patch":
+                batch = {"tokens": tokens[:, cfg.frontend_len:],
+                         "patch_embeds": torch.from_numpy(inp[f"{arch}/patches"][:b][rows])}
+            shape = tconfigs.ShapeConfig("serve", K.SERVE_PROMPT, b, "prefill")
+            pre = make_prefill_step(cfg, shape, attn_plan(cfg, shape), mesh=mesh)(model, batch)
+            step = make_decode_step(cfg, mesh=mesh)
+            caches = _placed_caches(cfg, mesh, b, K.SERVE_MAX_LEN)
+            logits, new = [], []
+            tok = tokens[:, :1]
+            for t in range(K.SERVE_PROMPT + K.SERVE_NEW - 1):
+                lg, caches = step(model, tok, caches, t)
+                logits.append(lg[:, 0])
+                if t + 1 < K.SERVE_PROMPT:
+                    tok = tokens[:, t + 1:t + 2]
+                else:
+                    tok = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+                    new.append(tok)
+            np.savez(os.path.join(io, f"serve.{m}.b{b}.{arch}.rank{rank}.npz"),
+                     prefill=pre[:, 0].numpy(), logits=torch.stack(logits, 1).numpy(),
+                     tokens=torch.cat(new, 1).numpy(), rows=np.array([rows.start, rows.stop]))
+        out[f"{m}|{b}"] = ",".join(map(str, mesh.get_coordinate()))
+    return out
+
+
+def task_pod(rank, world, io):
+    """``make_train_step(mesh=)`` on the ``POD_MESH`` for ``DP_STEPS`` steps
+    of each ``POD_ARCHS`` architecture at ``reduced()`` from
+    ``init_model(seed 0)``, this rank's block of ``IO/pod_batches.npz``'s
+    global batches (by its flat ``("pod", "data")`` coordinate): its
+    metrics, and rank 0 saves the gathered parameters after each step."""
+    import _dist_cases as K
+    import repro_torch.configs as tconfigs
+    from repro_torch.launch.mesh import make_mesh, mesh_coords
+    from repro_torch.launch.steps import attn_plan, make_train_step
+    from repro_torch.models import init_model, to_reference
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    batches = np.load(os.path.join(io, "pod_batches.npz"))
+    mesh = make_mesh(*K.POD_MESH, device="cpu")
+    c = mesh_coords(mesh)
+    out = {"coord": list(mesh.get_coordinate()), "data": c.data, "dp": c.dp}
+    for arch in K.POD_ARCHS:
+        cfg = tconfigs.get_arch(arch).reduced()
+        shape = tconfigs.ShapeConfig("dp", K.DP_SEQ, K.DP_BATCH, "train")
+        model = _place(init_model(cfg, 0, device="cpu"), mesh)
+        opt = adamw_init(model)
+        step = make_train_step(cfg, AdamWConfig(**K.DP_OPT), attn_plan(cfg, shape, c.dp),
+                               mesh=mesh)
+        per = K.DP_BATCH // c.dp
+        metrics = []
+        for s in range(K.DP_STEPS):
+            tokens = torch.from_numpy(batches[f"{arch}/{s}"][c.data * per:(c.data + 1) * per])
+            model, opt, m = step(model, opt, {"tokens": tokens})
+            metrics.append({k: float(v) for k, v in m.items()})
+            tree = K.flat(to_reference(model))  # a collective: every rank gathers
+            if rank == 0:
+                np.savez(os.path.join(io, f"pod_{arch}.step{s}.npz"), **tree)
+        out[arch] = metrics
+    return out
+
+
+def task_dryreal(rank, world, io):
+    """The steps ``test_torch_dryrun.py`` dry-runs on a fake group of 4,
+    on 4 real ``gloo`` ranks: qwen2-0.5b at ``reduced()``, float32, a
+    ``smoke_train`` step under ``remat="full"`` on (2, 2) and a batch-1
+    ``smoke_decode`` step (the sequence over ``("data", "model")``) on
+    (1, 4), on zeros; each step's ``collectives.traffic``."""
+    import dataclasses
+
+    import _dist_cases as K
+    import repro_torch.configs as tconfigs
+    from repro_torch.distributed import collectives as col
+    from repro_torch.launch.mesh import make_mesh, mesh_coords
+    from repro_torch.launch.steps import attn_plan, make_decode_step, make_train_step
+    from repro_torch.models import init_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    cfg = tconfigs.get_arch("qwen2-0.5b").reduced()
+    out = {}
+    mesh = make_mesh(*K.MESHES["2x2"], device="cpu")
+    shape = tconfigs.smoke_shape("train")
+    c = mesh_coords(mesh)
+    model = _place(init_model(cfg, 0, device="cpu"), mesh)
+    cfg = dataclasses.replace(cfg, remat="full")
+    step = make_train_step(cfg, AdamWConfig(), attn_plan(cfg, shape, c.dp), mesh=mesh)
+    batch = {"tokens": torch.zeros((shape.global_batch // c.dp, shape.seq_len),
+                                   dtype=torch.int32)}
+    opt = adamw_init(model)
+    col.traffic.clear()
+    step(model, opt, batch)
+    out["train"] = {k: list(v) for k, v in col.traffic.items()}
+    mesh = make_mesh(*K.MESHES["1x4"], device="cpu")
+    shape = tconfigs.smoke_shape("decode")
+    model = _place(init_model(cfg, 0, device="cpu"), mesh)
+    caches = _placed_caches(cfg, mesh, 1, shape.seq_len, torch.bfloat16)
+    col.traffic.clear()
+    make_decode_step(cfg, mesh=mesh)(model, torch.zeros((1, 1), dtype=torch.int32), caches,
+                                     shape.seq_len - 1)
+    out["decode"] = {k: list(v) for k, v in col.traffic.items()}
+    return out
+
+
+def task_cardserve(rank, world, io):
+    """``test_torch_gpu.py``: qwen2-0.5b and mamba2-780m at ``reduced()``
+    (``init_model(seed 5)`` on ``cuda:0``) on a (1, 2) mesh of 2 ranks
+    sharing the card, KV heads and SSM states split over the model ranks;
+    greedy decode of ``IO/card_prompts.npz``'s prompts on placed caches:
+    every step's logits and the tokens to ``IO/cardserve.<arch>.rank<R>.npz``."""
+    import repro_torch.configs as tconfigs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import init_model
+
+    prompts = np.load(os.path.join(io, "card_prompts.npz"))
+    mesh = make_mesh((1, 2), ("data", "model"), device="cuda:0")
+    for arch in ("qwen2-0.5b", "mamba2-780m"):
+        cfg = tconfigs.get_arch(arch).reduced()
+        model = _place(init_model(cfg, 5, device="cuda:0"), mesh)
+        tokens = torch.from_numpy(prompts[arch]).to("cuda:0")
+        p, n = tokens.shape[1], 8
+        caches = _placed_caches(cfg, mesh, tokens.shape[0], p + n, device="cuda:0")
+        step = make_decode_step(cfg, mesh=mesh)
+        tok, logits, new = tokens[:, :1], [], []
+        for t in range(p + n - 1):
+            lg, caches = step(model, tok, caches, t)
+            logits.append(lg[:, 0].cpu())
+            if t + 1 < p:
+                tok = tokens[:, t + 1:t + 2]
+            else:
+                tok = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+                new.append(tok.cpu())
+        np.savez(os.path.join(io, f"cardserve.{arch}.rank{rank}.npz"),
+                 logits=torch.stack(logits, 1).numpy(), tokens=torch.cat(new, 1).numpy())
+    return {"coord": list(mesh.get_coordinate())}
+
+
 TASKS = {"sharding": task_sharding, "dp4": task_dp4, "dp2": task_dp2, "tp4": task_tp4,
-         "tpmesh": task_tpmesh, "tp2": task_tp2}
+         "tpmesh": task_tpmesh, "tp2": task_tp2, "serve": task_serve, "pod": task_pod,
+         "dryreal": task_dryreal, "cardserve": task_cardserve}
 
 
 def main():

@@ -697,3 +697,68 @@ def test_collectives_through_nccl_equal_one_rank_answers(nccl_rank):
     torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
     x = torch.randn((4, 32), generator=gen, device=nccl_rank)
     assert torch.equal(pipeline_stage_step(lambda y: y * 2.0 + 1.0, x), x * 2.0 + 1.0)
+
+
+# --------------------------------------------------------------------------- #
+# Placed decode on 2 gloo ranks sharing the card, and a dry run on the card
+# (chip_smoke.py phase 14 at reduced())
+# --------------------------------------------------------------------------- #
+def test_placed_decode_on_two_ranks_equals_one_card(cuda_device, tmp_path):
+    """qwen2-0.5b (KV heads over the model ranks) and mamba2-780m (SSM
+    states gathered for a step, a block kept) at ``reduced()`` on a (1, 2)
+    mesh of 2 ``gloo`` ranks sharing the card (``_dist_port.py
+    cardserve``), against one card's decode of the same weights and
+    prompts: every step's logits within 1e-4, greedy tokens equal."""
+    from _dist_port import spawn
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import decode_step, init_caches, init_model
+
+    rng = np.random.default_rng(SEED)
+    prompts = {a: rng.integers(0, 256, (2, 8)).astype(np.int32)
+               for a in ("qwen2-0.5b", "mamba2-780m")}
+    np.savez(tmp_path / "card_prompts.npz", **prompts)
+    ranks = spawn("cardserve", 2, str(tmp_path))
+    assert [r["coord"] for r in ranks] == [[0, 0], [0, 1]]
+    for arch, tokens in prompts.items():
+        cfg = get_arch(arch).reduced()
+        model = init_model(cfg, 5, device=cuda_device)
+        caches = init_caches(cfg, 2, 16, device=cuda_device)
+        tok, logits, new = torch.from_numpy(tokens[:, :1]).to(cuda_device), [], []
+        for t in range(15):
+            lg, caches = decode_step(model, tok, caches, t, cfg)
+            logits.append(lg[:, 0].cpu())
+            if t + 1 < 8:
+                tok = torch.from_numpy(tokens[:, t + 1:t + 2]).to(cuda_device)
+            else:
+                tok = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+                new.append(tok.cpu())
+        for r in range(2):
+            got = np.load(tmp_path / f"cardserve.{arch}.rank{r}.npz")
+            np.testing.assert_allclose(got["logits"], torch.stack(logits, 1).numpy(),
+                                       rtol=1e-4, atol=1e-4)
+            np.testing.assert_array_equal(got["tokens"], torch.cat(new, 1).numpy())
+
+
+def test_dry_run_of_a_reduced_cell_on_the_card(cuda_device, tmp_path):
+    """``python -m repro_torch.launch.dryrun --device cuda`` of qwen2-0.5b's
+    reduced train step on a fake (2, 2) group: ``ok``, fake tensors on the
+    card's device type, ``fits`` against its memory, the card named."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+    done = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                           "qwen2-0.5b", "--shape", "smoke_train", "--mesh", "2x2", "--reduced",
+                           "--device", "cuda", "--out", str(tmp_path)],
+                          env=dict(os.environ, PYTHONPATH=os.path.abspath(src)),
+                          capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stdout[-3000:] + done.stderr[-3000:]
+    with open(tmp_path / "mesh2x2" / "qwen2-0.5b__smoke_train.json") as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok" and rec["device"] == "cuda" and rec["fits"] is True
+    assert rec["device_memory_bytes"] == torch.cuda.get_device_properties(0).total_memory
+    assert torch.cuda.get_device_name(0) in rec["card"]
+    assert rec["cost_accounted"] == rec["cost_analysis"]
