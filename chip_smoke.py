@@ -132,21 +132,32 @@ Phases:
     parameters within 1e-5
     of phase 11's for all but a 1e-6 share of the entries (phase 11b's
     rule) and all below 2 sum(lr); each rank's blocks their slices of the
-    gathered tree, exactly; ``replicated_over_model`` empty; rank 0's
-    lineage store (logged by its pipeline on the card) queried back to the
-    corpus, which must launch ``range_join_mask``; printed as 12a.
+    gathered tree, exactly; every layer's attention split by heads and
+    ``replicated_over_model`` empty; rank 0's lineage store (logged by its
+    pipeline on the card) queried back to the corpus, which must launch
+    ``range_join_mask``; printed as 12a.  (13b) the same 4 ranks on a
+    (1, 4) mesh (``train_loop(model_parallel=4)``), both sequences on
+    every rank: 14 query heads over 4 model ranks cut a head, so under
+    the default ``attn_heads="auto"`` every layer's attention splits by
+    sequence (1,024 rows a rank) on its weights gathered over the model
+    ranks (``replicated_over_model`` names them); held to phase 11's steps
+    and parameters as phase 13; each layer's split, a rank's peak, step ms
+    and a step's collectives printed.
 14. the dry run and placed serving (``launch.dryrun``, ``launch.steps``'
     placed prefill and decode): (a) ``python -m repro_torch.launch.dryrun
     --device cuda`` of qwen2-0.5b's four shapes on the 16x16 mesh and of
     grok-1-314b ``train_4k`` on 2x16x16, each a process of its own on a
     fake process group, started niced at phase 10 (CPU work alone): every
     cell ``ok``, or ``skip`` exactly as ``skip_reason`` says, ``fits``
-    against the card's memory, state bytes, flops and peak printed; (b)
-    the dry run of phase 13's configuration on a fake group of 4 (a (2, 2)
-    mesh, float32, one 4,096-token sequence a data rank, chunk 512): its
-    held parameter, gradient and moment bytes and each collective kind's
-    calls and bytes a step must equal phase 13's rank 0's, its peak lie
-    within 15 % of phase 13's rank 0 peak (ratio printed); and phase 11's
+    against the card's memory, state bytes, flops and peak printed, and
+    qwen2-0.5b ``train_4k``'s flops and peak beside the counts from before
+    its attention split by sequence (``DRY_BEFORE``); (b) the dry runs of
+    phase 13's configuration on a fake group of 4 (a (2, 2) mesh, float32,
+    one 4,096-token sequence a data rank, chunk 512) and of phase 13b's
+    (a (1, 4) mesh): each one's held parameter, gradient and moment bytes,
+    attention splits and each collective kind's calls and bytes a step
+    must equal its phase's rank 0's, its peak lie within 15 % of that rank
+    0 peak (ratio printed); and phase 11's
     configuration on one fake rank, its flops printed beside the flop
     bound's count; (c) the script starts itself 4 times (``--serve-rank``)
     as ``gloo`` ranks sharing the card: qwen2-0.5b at its published widths
@@ -154,8 +165,16 @@ Phases:
     ranks) and a (1, 4) mesh (one prompt, the caches' sequence over
     ``("data", "model")``), placed prefill and greedy decode of 4-token
     prompts and 4 new tokens on caches placed by ``cache_sharding``: the
-    tokens must equal a one-card run's on the same weights; ms a token,
-    each rank's cache bytes and a step's collectives printed.
+    tokens must equal a one-card run's on the same weights (placed
+    prefill's attention split by heads on (2, 2), by sequence on (1, 4):
+    one prompt row a rank); ms a token, each rank's cache bytes and a
+    step's collectives printed.
+15. the DSLog examples (``examples/quickstart_torch.py`` and
+    ``examples/lineage_debugging_torch.py``), each run in this process
+    with ``--device cpu`` and then ``--device cuda``: the card's printed
+    answers must be the CPU's, line for line (a plan's cost estimate and
+    engine notes name the device, and are left out of the comparison),
+    and its queries must launch ``range_join_mask``.
 
 Phases 3-5 are the port's main path, phase 7 the store's, phase 8's
 ``ops.run_boundaries`` calls the run-boundary kernel's and phase 9 the
@@ -169,8 +188,11 @@ is required to launch there.  Phase 11's are reported as
 ``range_join_mask``; phase 12's as ``launches_dp_path`` (the ranks of 12a
 report theirs; the distributed pieces have no kernel); phase 13's ranks
 count theirs from zero and report them as ``launches_tp_path``, where
-``range_join_mask`` must have launched; phase 14's (``launches_dry_path``)
-are reported, as the dry run and placed serving launch no kernel.  The
+``range_join_mask`` must have launched, and so do phase 13b's
+(``launches_seq_tp_path``); phase 14's (``launches_dry_path``) are
+reported, as the dry run and placed serving launch no kernel; each of
+phase 15's examples must launch ``range_join_mask`` on the card
+(``launches_examples_path``).  The
 JSON line reports phase 6's and phase 8's numbers
 on the main paths' own operands.  Any failure raises and exits non-zero.
 Without CUDA, or without the port beside this script, it exits non-zero
@@ -194,6 +216,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -300,6 +323,13 @@ DP_PARAM_TOL = 1e-5
 # parameters by phase 11b's rule (all but PARAM_OUT_SHARE of the entries
 # within DP_PARAM_TOL)
 TP_RANKS, TP_MODEL = 4, 2
+# phase 13b: the same on a (1, SEQ_MODEL) mesh of TP_RANKS ranks: 14 query heads
+# over 4 model ranks cut a head, so under the default attn_heads="auto" every
+# layer's attention splits by sequence (1,024 of a sequence's 4,096 rows a
+# rank) on its weights gathered over the model ranks (ATTN_GATHERED)
+SEQ_MODEL = 4
+ATTN_GATHERED = sorted(f"layers/attn/{n}/{t}" for n in "qkvo" for t in "wb"
+                       if t == "w" or n != "o")
 # phase 12b: flash-decode partials on a one-rank NCCL group
 FLASH_SHAPE, FLASH_TOL = (2, 14, 4096, 64), 1e-5
 # phase 14: the dry run (python -m repro_torch.launch.dryrun, each on a fake
@@ -308,7 +338,7 @@ FLASH_SHAPE, FLASH_TOL = (2, 14, 4096, 64), 1e-5
 # 14a: qwen2-0.5b's four shapes on the 16x16 mesh and grok-1-314b train_4k
 # on 2x16x16; 14b: phase 13's configuration on a (2, 2) mesh of 4 fake ranks
 # (published widths and depth, float32, remat full, one 4,096-token sequence a
-# data rank, chunk 512) and phase 11's on one
+# data rank, chunk 512), phase 13b's on a (1, 4) mesh of 4 and phase 11's on one
 DRY_RUNS = {
     "14a_qwen2": ("--arch", "qwen2-0.5b", "--shape", "all", "--skip-account"),
     "14a_grok": ("--arch", "grok-1-314b", "--shape", "train_4k", "--multi-pod",
@@ -319,13 +349,22 @@ DRY_RUNS = {
     "14b_card": ("--arch", TRAIN_ARCH, "--shape", TRAIN_SHAPE, "--mesh", "1x1", "--global-batch",
                  str(TRAIN_BATCH), "--param-dtype", "float32", "--remat", "full", "--chunk", "512",
                  "--skip-account"),
+    "14b_seq": ("--arch", TRAIN_ARCH, "--shape", TRAIN_SHAPE, "--mesh", f"1x{SEQ_MODEL}",
+                "--global-batch", str(TRAIN_BATCH), "--param-dtype", "float32", "--remat", "full",
+                "--chunk", "512", "--skip-account"),
 }
+# 14a: qwen2-0.5b train_4k on 16x16 as the dry run counted it before its
+# cut-head attention split by sequence (whole on every model rank)
+DRY_BEFORE = {"flops": 1.2822e14, "peak_bytes": 47_179_086_468}
 DRY_TIMEOUT_S, DRY_PEAK_TOL = 900, 0.15
 # phase 14c: placed prefill and greedy decode at qwen2-0.5b's published widths
 # and depth on TP_RANKS gloo ranks sharing the card: (mesh, prompts) cases,
 # PLACED_PROMPT-token prompts, PLACED_NEW greedy tokens
 PLACED_CASES = (((2, 2), 8), ((1, 4), 1))
 PLACED_PROMPT, PLACED_NEW = 4, 4
+# phase 15: the port's DSLog examples, run in this process with --device cuda
+# and --device cpu
+EXAMPLES = ("quickstart_torch.py", "lineage_debugging_torch.py")
 
 
 def log(msg: str) -> None:
@@ -2151,6 +2190,7 @@ def replay_exchange(torch, dist, coords, step_traffic) -> dict:
     # over the data group
     groups = {"zero3_gather": coords.data_group, "zero3_reduce_scatter": coords.data_group,
               "model_all_reduce": coords.model_group, "model_all_gather": coords.model_group,
+              "model_reduce_scatter": coords.model_group,
               "dp_mean_all_reduce": coords.data_group, "norm_all_reduce": coords.data_group}
     out = {}
     for kind, (n, b) in sorted(step_traffic.items()):
@@ -2163,7 +2203,7 @@ def replay_exchange(torch, dist, coords, step_traffic) -> dict:
             dist.all_gather_into_tensor(got, torch.full((per,), r + 1.0, device="cuda:0"),
                                         group=group)
             want = numbers.repeat_interleave(per)
-        elif kind == "zero3_reduce_scatter":
+        elif kind in ("zero3_reduce_scatter", "model_reduce_scatter"):
             got = torch.empty(per, device="cuda:0")
             dist.reduce_scatter_tensor(got, numbers.repeat_interleave(per), group=group)
             want = torch.full((per,), size * (r + 1.0), device="cuda:0")
@@ -2181,7 +2221,7 @@ def replay_exchange(torch, dist, coords, step_traffic) -> dict:
         for _ in range(n):
             if kind in ("zero3_gather", "model_all_gather"):
                 dist.all_gather_into_tensor(whole, block, group=group)
-            elif kind == "zero3_reduce_scatter":
+            elif kind in ("zero3_reduce_scatter", "model_reduce_scatter"):
                 dist.reduce_scatter_tensor(block, whole, group=group)
             else:
                 dist.all_reduce(whole, group=group)
@@ -2207,14 +2247,15 @@ def mesh_lineage(store, pipe, steps, dp) -> dict:
 
 
 def mesh_worker(rank: int, world: int, mp: int, layers: int, workdir: str) -> int:
-    """One rank of phase 12a (``mp`` 1) or 13 (``mp`` 2), run as
+    """One rank of phase 12a (``mp`` 1), 13 (``mp`` 2) or 13b (``mp`` 4), run as
     ``chip_smoke.py --mesh-rank R --mesh-world W --mesh-model M
     --mesh-layers L --mesh-dir D``: ``train_loop`` on ``cuda:0`` at L of
     qwen2-0.5b's layers on a ``(W / M, M)`` mesh of a ``gloo``
     group (file rendezvous in D); the bytes it holds and its collectives'
     bytes a step, then those collectives alone; the gathered parameters,
     against its own blocks and (rank 0) the one-process run's in
-    ``D/mesh<W>x<M>_want.pt``; in phase 13 rank 0's lineage queries.  Writes
+    ``D/mesh<W>x<M>_want.pt``; each layer's attention split; in phases 13
+    and 13b rank 0's lineage queries.  Writes
     ``D/mesh<W>x<M>.rankR.json``."""
     import dataclasses
     import hashlib
@@ -2233,7 +2274,7 @@ def mesh_worker(rank: int, world: int, mp: int, layers: int, workdir: str) -> in
     from repro_torch.launch.train import train_loop
     from repro_torch.models.convert import to_reference, tree_values
     from repro_torch.models.layers import Init
-    from repro_torch.models.model import LM, replicated_over_model
+    from repro_torch.models.model import LM, attention_splits, replicated_over_model
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
     if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
@@ -2291,7 +2332,8 @@ def mesh_worker(rank: int, world: int, mp: int, layers: int, workdir: str) -> in
                "step_ms": step_ms, "peak": peak, "ctx_ms": ctx_ms, "param_bytes": held,
                "grad_bytes": held, "moment_bytes": moment_bytes, "step_traffic": step_traffic,
                "exchange_ms": exchange_ms, "digest": digest.hexdigest(),
-               "replicated_over_model": replicated_over_model(model, cfg)}
+               "replicated_over_model": replicated_over_model(model, cfg, shape.seq_len),
+               "attn_split": attention_splits(model, cfg, shape.seq_len)}
         if rank == 0:
             want = torch.load(os.path.join(workdir, f"{tag}_want.pt"), mmap=True)
             meta = LM(Init(None, "meta"), cfg)
@@ -2344,12 +2386,14 @@ def mesh_reference(torch, layers) -> dict:
     return want
 
 
-def phase_mesh(torch, card, workdir, want, world, mp, name) -> dict:
-    """Phase 12a (``mp`` 1: ZeRO-3 over 2 data ranks) or 13 (``mp`` 2: a
-    (2, 2) mesh): ``train_loop`` on ``world`` processes sharing the card
-    (module doc) at the depth of ``want``, a one-process run
-    (``mesh_reference``'s, or phase 11's ``keep``), held to its first
-    DP_STEPS steps."""
+def phase_mesh(torch, card, workdir, want, world, mp, name, split=None) -> dict:
+    """Phase 12a (``mp`` 1: ZeRO-3 over 2 data ranks), 13 (``mp`` 2: a
+    (2, 2) mesh) or 13b (``mp`` 4: a (1, 4) mesh): ``train_loop`` on
+    ``world`` processes sharing the card (module doc) at the depth of
+    ``want``, a one-process run (``mesh_reference``'s, or phase 11's
+    ``keep``), held to its first DP_STEPS steps; on a model axis every
+    layer's attention must split as ``split`` says (``"heads"``: no weight
+    gathered over the model ranks; ``"seq"``: the attention's gathered)."""
     layers = want["layers"]
     torch.save(want["params"], os.path.join(workdir, f"mesh{world}x{mp}_want.pt"))
     torch.cuda.empty_cache()
@@ -2406,9 +2450,12 @@ def phase_mesh(torch, card, workdir, want, world, mp, name) -> dict:
                              f"{r0['param_beyond']} of {r0['param_all']} entries beyond "
                              f"{DP_PARAM_TOL}")
     if mp > 1:
-        if any(rk["replicated_over_model"] for rk in ranks):
-            raise AssertionError(f"phase {name}: layers computed whole on every model rank: "
-                                 f"{ranks[0]['replicated_over_model']}")
+        gathered = ATTN_GATHERED if split == "seq" else []
+        for rk in ranks:
+            if rk["attn_split"] != [split] * layers or rk["replicated_over_model"] != gathered:
+                raise AssertionError(f"phase {name} rank {rk['rank']}: attention split "
+                                     f"{rk['attn_split']} (want {split} in each layer), gathered "
+                                     f"over the model ranks {rk['replicated_over_model']}")
         if r0["launches"]["range_join_mask"] <= 0:
             raise AssertionError(f"phase {name}: rank 0's lineage queries launched no mask")
     launches = {k: sum(rk["launches"][k] for rk in ranks) for k in r0["launches"]}
@@ -2418,6 +2465,7 @@ def phase_mesh(torch, card, workdir, want, world, mp, name) -> dict:
            "param_max_abs": r0["param_max_abs"], "param_worst": r0["param_worst"],
            "param_beyond_tol": r0["param_beyond"], "adamw_bound": adamw_bound,
            "launches": launches, "replicated_over_model": r0["replicated_over_model"],
+           "attn_split": r0["attn_split"],
            **{k: r0[k] for k in ("lineage_query_ms", "lineage_queries") if k in r0},
            "per_rank": [{k: rk[k] for k in ("coord", "step_ms", "peak", "ctx_ms", "param_bytes",
                                             "grad_bytes", "moment_bytes", "step_traffic",
@@ -2433,13 +2481,15 @@ def phase_mesh(torch, card, workdir, want, world, mp, name) -> dict:
             f"context {rk['ctx_ms']:.1f}ms; step 1 (with init_model and placement) {ms[0]:.1f}ms, "
             f"steps 2-{DP_STEPS} {', '.join(f'{x:.1f}' for x in ms[1:])}ms; a step's exchange "
             f"{moved}; alone, staged through the host by gloo: {alone}")
-    log(f"  {card}: {world} ranks on a ({world // mp}, {mp}) mesh, {layers} layers, 1 "
-        f"sequence of {TRAIN_SHAPE} a data rank, {DP_STEPS} steps in {wall:.2f}s (processes "
+    log(f"  {card}: {world} ranks on a ({world // mp}, {mp}) mesh, {layers} layers, "
+        f"{TRAIN_BATCH * mp // world} sequence(s) of {TRAIN_SHAPE} a data rank, {DP_STEPS} steps "
+        f"in {wall:.2f}s (processes "
         f"included); loss/grad_norm/lr max |diff| against one process at this depth {err:.3e} "
         f"(atol {DP_TOL}); gathered parameters max |diff| "
         f"{res['param_max_abs']:.3e} in {res['param_worst']}, {res['param_beyond_tol']} of "
         f"{r0['param_all']} entries beyond {DP_PARAM_TOL} (at most a share of {share}; below 2 "
-        f"sum(lr) = {adamw_bound:.3e}); computed whole on every model rank: "
+        f"sum(lr) = {adamw_bound:.3e}); attention split "
+        f"{dict(Counter(res['attn_split']))} over {layers} layers; gathered over the model ranks: "
         f"{res['replicated_over_model'] or 'none'}; launches {launches}"
         + (f"; rank 0's {res['lineage_queries']} lineage queries {res['lineage_query_ms']:.1f}ms"
            if "lineage_queries" in res else "") + f"; parent holds {parent_mem}B")
@@ -2492,11 +2542,12 @@ def dry_records(procs) -> dict:
     return out
 
 
-def phase_dry_run(torch, card, procs, tp, training) -> dict:
+def phase_dry_run(torch, card, procs, tp, tp4, training) -> dict:
     """Phase 14a and 14b (module doc): each cell ``ok`` or ``skip`` as
-    ``skip_reason`` says, ``fits`` against the card's memory; 14b's held
-    bytes and collectives equal to phase 13's measured ones, its peak
-    within DRY_PEAK_TOL of phase 13's rank 0."""
+    ``skip_reason`` says, ``fits`` against the card's memory; qwen2-0.5b
+    ``train_4k`` on 16x16 beside ``DRY_BEFORE``; 14b's held bytes,
+    collectives and attention splits equal to phase 13's and 13b's measured
+    ones, each peak within DRY_PEAK_TOL of that phase's rank 0."""
     from repro_torch.configs import get_arch, skip_reason
 
     runs = dry_records(procs)
@@ -2523,37 +2574,59 @@ def phase_dry_run(torch, card, procs, tp, training) -> dict:
             cell = {"dry_run": name, **{k: rec[k] for k in (
                 "arch", "shape", "mesh", "kind", "plan", "state_bytes_per_device",
                 "state_parts_bytes", "cost_analysis", "memory_analysis", "collectives", "traffic",
-                "fits", "n_micro_run", "lower_s", "compile_s", "wall_s", "card")}}
+                "fits", "n_micro_run", "lower_s", "compile_s", "wall_s", "card", "attn_split")}}
             res["cells"].append(cell)
             log(f"    {rec['arch']} {rec['shape']} on {rec['mesh']} (world {rec['world']}): "
                 f"state {rec['state_bytes_per_device']}B, flops "
                 f"{rec['cost_analysis']['flops']:.4e}, peak {mem['peak_bytes']}B, fits "
                 f"{rec['fits']} ({total}B); n_micro {rec['plan']['n_micro']} (run "
                 f"{rec['n_micro_run']}); {rec['wall_s']}s")
-    mesh = next(c for c in res["cells"] if c["dry_run"] == "14b_mesh")
+    cell = next(c for c in res["cells"] if c["dry_run"] == "14a_qwen2"
+                and c["shape"] == "train_4k")
+    flops, peak = cell["cost_analysis"]["flops"], cell["memory_analysis"]["peak_bytes"]
+    res["train_4k_16x16"] = {"flops": flops, "peak_bytes": peak, "attn_split": cell["attn_split"],
+                             "before": DRY_BEFORE}
+    log(f"  14a qwen2-0.5b train_4k on 16x16: {flops:.4e} flops, peak {peak}B, attention split "
+        f"{dict(Counter(cell['attn_split']))}; before the split by sequence "
+        f"{DRY_BEFORE['flops']:.4e} flops, peak {DRY_BEFORE['peak_bytes']}B (ratios "
+        f"{flops / DRY_BEFORE['flops']:.4f}, {peak / DRY_BEFORE['peak_bytes']:.4f})")
+    res["predicted"] = {}
+    for dry_run, phase, run, split in (("14b_mesh", "13", tp, "heads"),
+                                       ("14b_seq", "13b", tp4, "seq")):
+        mesh = next(c for c in res["cells"] if c["dry_run"] == dry_run)
+        r0 = run["per_rank"][0]
+        parts = mesh["state_parts_bytes"]
+        got = (parts["params"], parts["grads"], parts["moments"])
+        want = (r0["param_bytes"], r0["grad_bytes"], r0["moment_bytes"])
+        if got != want:
+            raise AssertionError(f"phase 14b: held parameters, gradients, moments {got} != phase "
+                                 f"{phase}'s {want}")
+        measured = {k: list(v) for k, v in r0["step_traffic"].items()}
+        if mesh["traffic"] != measured:
+            raise AssertionError(f"phase 14b: collectives {mesh['traffic']} != phase {phase}'s "
+                                 f"{measured}")
+        if mesh["attn_split"] != run["attn_split"] or set(mesh["attn_split"]) != {split}:
+            raise AssertionError(f"phase 14b: attention split {mesh['attn_split']} != phase "
+                                 f"{phase}'s {run['attn_split']}")
+        ratio = mesh["memory_analysis"]["peak_bytes"] / r0["peak"]
+        if abs(ratio - 1) > DRY_PEAK_TOL:
+            raise AssertionError(f"phase 14b: peak {mesh['memory_analysis']['peak_bytes']}B is "
+                                 f"{ratio:.4f} x phase {phase}'s {r0['peak']}B (tolerance "
+                                 f"{DRY_PEAK_TOL})")
+        res["predicted"][phase] = {"held_equal": True, "traffic_equal": True, "peak_ratio": ratio,
+                                   "flops": mesh["cost_analysis"]["flops"],
+                                   "peak_bytes": mesh["memory_analysis"]["peak_bytes"]}
+        moved = ", ".join(f"{k} {n} calls {b}B" for k, (n, b) in sorted(mesh["traffic"].items()))
+        log(f"  {card}: 14b predicts phase {phase}'s rank 0 exactly ({mesh['mesh']}, attention "
+            f"split {split} in every layer): parameters {got[0]}B, gradients {got[1]}B, moments "
+            f"{got[2]}B; a step's {moved}; peak {mesh['memory_analysis']['peak_bytes']}B "
+            f"against the measured {r0['peak']}B (ratio {ratio:.4f}, tolerance {DRY_PEAK_TOL}); "
+            f"{mesh['cost_analysis']['flops']:.4e} flops a rank")
     card_cell = next(c for c in res["cells"] if c["dry_run"] == "14b_card")
-    r0 = tp["per_rank"][0]
-    parts = mesh["state_parts_bytes"]
-    got = (parts["params"], parts["grads"], parts["moments"])
-    want = (r0["param_bytes"], r0["grad_bytes"], r0["moment_bytes"])
-    if got != want:
-        raise AssertionError(f"phase 14b: held parameters, gradients, moments {got} != phase "
-                             f"13's {want}")
-    measured = {k: list(v) for k, v in r0["step_traffic"].items()}
-    if mesh["traffic"] != measured:
-        raise AssertionError(f"phase 14b: collectives {mesh['traffic']} != phase 13's {measured}")
-    ratio = mesh["memory_analysis"]["peak_bytes"] / r0["peak"]
-    if abs(ratio - 1) > DRY_PEAK_TOL:
-        raise AssertionError(f"phase 14b: peak {mesh['memory_analysis']['peak_bytes']}B is "
-                             f"{ratio:.4f} x phase 13's {r0['peak']}B (tolerance {DRY_PEAK_TOL})")
-    res.update(held_equal=True, traffic_equal=True, peak_ratio=ratio,
+    res.update(held_equal=True, traffic_equal=True, peak_ratio=res["predicted"]["13"]["peak_ratio"],
                phase11_flops=card_cell["cost_analysis"]["flops"],
                phase11_bound_flops=training["step_flops"])
-    moved = ", ".join(f"{k} {n} calls {b}B" for k, (n, b) in sorted(mesh["traffic"].items()))
-    log(f"  {card}: 14b predicts phase 13's rank 0 exactly: parameters {got[0]}B, gradients "
-        f"{got[1]}B, moments {got[2]}B; a step's {moved}; peak "
-        f"{mesh['memory_analysis']['peak_bytes']}B against the measured {r0['peak']}B (ratio "
-        f"{ratio:.4f}, tolerance {DRY_PEAK_TOL}); phase 11's step (one card, 2 x 4,096 tokens): "
+    log(f"  {card}: phase 11's step (one card, 2 x 4,096 tokens): "
         f"{res['phase11_flops']:.4e} flops counted, {res['phase11_bound_flops']:.4e} in the "
         f"flop bound ({training['bound_ms']:.1f}ms)")
     return res
@@ -2578,7 +2651,7 @@ def serve_worker(rank: int, world: int, workdir: str) -> int:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import (abstract_caches, attn_plan, make_decode_step,
                                           make_prefill_step)
-    from repro_torch.models import init_model
+    from repro_torch.models import attention_splits, init_model
     from repro_torch.models.blocks import init_caches
     from repro_torch.models.convert import place_model, shape_tree, spec_tree
 
@@ -2624,6 +2697,7 @@ def serve_worker(rank: int, world: int, workdir: str) -> int:
             out["cases"].append({
                 "mesh": list(shape), "batch": b, "rows": [lo, lo + n],
                 "coord": list(mesh.get_coordinate()), "prefill_first": first.tolist(),
+                "prefill_split": attention_splits(model, cfg, PLACED_PROMPT),
                 "tokens": torch.cat(new, 1).tolist(), "step_ms": ms, "cache_bytes": held,
                 "step_traffic": {k: list(v) for k, v in col.traffic.items()},
                 "cache_specs": {k: list(map(str, v.spec)) for k, v in c_sh.items()}})
@@ -2695,6 +2769,9 @@ def phase_placed_decode(torch, card, workdir) -> dict:
             ranks.append(json.load(f))
     res = {"wall_s": wall, "cases": []}
     for i, (shape, b) in enumerate(PLACED_CASES):
+        # 14 query heads: 2 model ranks split them, 4 cut one (the prompt's
+        # rows split by sequence, one a rank)
+        split = "heads" if cfg.n_heads % shape[1] == 0 else "seq"
         w = want[b]
         for rk in ranks:
             c = rk["cases"][i]
@@ -2706,22 +2783,88 @@ def phase_placed_decode(torch, card, workdir) -> dict:
             if w["tokens"][lo:hi] and c["prefill_first"] != [row[0] for row in
                                                              w["tokens"][lo:hi]]:
                 raise AssertionError(f"phase 14c {shape}: prefill's token is not decode's")
+            if set(c["prefill_split"]) != {split}:
+                raise AssertionError(f"phase 14c {shape} rank {rk['rank']}: prefill's attention "
+                                     f"split {c['prefill_split']}, not {split}")
         c0 = ranks[0]["cases"][i]
         step_ms = float(np.median(c0["step_ms"][1:]))
         one_ms = float(np.median(w["ms"][1:]))
         moved = ", ".join(f"{k} {n} calls {b_}B" for k, (n, b_) in
                           sorted(c0["step_traffic"].items()))
-        case = {"mesh": shape, "batch": b, "tokens_equal": True, "step_ms": step_ms,
+        case = {"mesh": shape, "batch": b, "tokens_equal": True, "prefill_split": split,
+                "step_ms": step_ms,
                 "one_card_step_ms": one_ms,
                 "cache_bytes": [rk["cases"][i]["cache_bytes"] for rk in ranks],
                 "cache_specs": c0["cache_specs"], "step_traffic": c0["step_traffic"]}
         res["cases"].append(case)
         log(f"  {card}: placed decode on {shape}, {b} prompt(s) of {PLACED_PROMPT} tokens, "
-            f"{PLACED_NEW} greedy tokens equal to one card's (prefill's first token too); "
+            f"{PLACED_NEW} greedy tokens equal to one card's (prefill's first token too, its "
+            f"attention split {split}); "
             f"{step_ms:.1f}ms a token on rank 0 (median of steps 2-{len(c0['step_ms'])}; one "
             f"card {one_ms:.1f}ms); caches k/v {c0['cache_specs'].get('k')}, a rank holds "
             f"{case['cache_bytes']}B; a step's {moved}")
     log(f"  phase 14c: {TP_RANKS} ranks sharing the card, {wall:.2f}s (processes included)")
+    return res
+
+
+# --------------------------------------------------------------------------- #
+# The DSLog examples (phase 15)
+# --------------------------------------------------------------------------- #
+def run_example(name: str, device: str) -> tuple[list, float]:
+    """``examples/<name> --device <device>`` run in this process: its
+    printed lines, a lease error's store path and process id made neutral
+    (they differ between any two runs), and its seconds."""
+    import contextlib
+    import io
+    import runpy
+
+    path = ROOT / "examples" / name
+    buf, argv = io.StringIO(), sys.argv
+    sys.argv = [str(path), "--device", device]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(path), run_name="__main__")
+    finally:
+        sys.argv = argv
+    text = re.sub(r"store '[^']*'", "store '<root>'", buf.getvalue())
+    return re.sub(r"\(pid \d+ on [^)]*\)", "(pid <pid>)", text).splitlines(), \
+        time.perf_counter() - t0
+
+
+def device_neutral(line: str) -> str:
+    """A printed line with what names the device made neutral: a plan's
+    cost estimate and each hop's engine note (``batched(cuda:256x256)``
+    on the card, ``batched(np:cpu:4m)`` on the CPU)."""
+    line = re.sub(r"est_cost=\S+", "est_cost=<cost>", line)
+    return re.sub(r"batched\([^)]*\)", "batched(<engine>)", line)
+
+
+def phase_examples(torch, card, wrappers) -> dict:
+    """Phase 15: each example on the CPU, then on the card with the launch
+    counters zeroed just before and read just after; the card's answers
+    must be the CPU's, line for line (``device_neutral``), and its queries
+    must launch ``range_join_mask``."""
+    res = {}
+    for name in EXAMPLES:
+        cpu, cpu_s = run_example(name, "cpu")
+        for w in wrappers.values():
+            w.launches = 0
+        cuda, cuda_s = run_example(name, "cuda")
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        if list(map(device_neutral, cuda)) != list(map(device_neutral, cpu)):
+            diff = [(a, b) for a, b in zip(cuda, cpu) if a != b] or (len(cuda), len(cpu))
+            raise AssertionError(f"phase 15 {name}: the card's answers differ from the CPU's: "
+                                 f"{diff}")
+        if launches["range_join_mask"] <= 0:
+            raise AssertionError(f"phase 15 {name}: its queries launched no range_join_mask")
+        res[name] = {"lines": len(cuda), "cuda_s": cuda_s, "cpu_s": cpu_s, "launches": launches}
+        log(f"  {card}: {name} --device cuda printed the CPU run's {len(cuda)} lines, "
+            f"{sum(a != b for a, b in zip(cuda, cpu))} of them apart from the device's plan "
+            f"notes ({cuda_s:.2f}s; cpu {cpu_s:.2f}s); launches {launches}")
+        for line in cuda:
+            log(f"    | {line}")
     return res
 
 
@@ -3253,9 +3396,21 @@ def main(argv=None) -> int:
         for w in wrappers.values():
             w.launches = 0
         tp = run_phase(torch, wrappers, "13 tensor-parallel and ZeRO-3 training on a (2, 2) mesh",
-                       lambda: phase_mesh(torch, card, workdir, keep, TP_RANKS, TP_MODEL, "13"))
+                       lambda: phase_mesh(torch, card, workdir, keep, TP_RANKS, TP_MODEL, "13",
+                                          split="heads"))
         tp_launches = tp["launches"]
         log(f"mesh-path launches (its ranks): {tp_launches}")
+
+        # phase 13b: the same ranks on a (1, 4) mesh, attention split by
+        # sequence; its ranks count their launches from zero
+        for w in wrappers.values():
+            w.launches = 0
+        tp4 = run_phase(torch, wrappers, "13b tensor-parallel training on a (1, 4) mesh, "
+                        "attention split by sequence",
+                        lambda: phase_mesh(torch, card, workdir, keep, TP_RANKS, SEQ_MODEL, "13b",
+                                           split="seq"))
+        tp4_launches = tp4["launches"]
+        log(f"sequence-split mesh-path launches (its ranks): {tp4_launches}")
     keep.clear()
 
     # placed serving and the dry run, phase 14: no kernel of its own; 14c first,
@@ -3265,10 +3420,17 @@ def main(argv=None) -> int:
     placed = run_phase(torch, wrappers, "14c placed prefill and decode on a mesh",
                        lambda: phase_placed_decode(torch, card, dry_dir))
     dry = run_phase(torch, wrappers, "14a-b dry run on fake process groups",
-                    lambda: phase_dry_run(torch, card, dry_procs, tp, training))
+                    lambda: phase_dry_run(torch, card, dry_procs, tp, tp4, training))
     dry["placed"] = placed
     dry_launches = {k: w.launches for k, w in wrappers.items()}
     log(f"dry-run and placed-serving launches: {dry_launches}")
+
+    # the DSLog examples, phase 15: each example's run on the card counts its
+    # launches from zero
+    examples = run_phase(torch, wrappers, "15 the DSLog examples on the card and the CPU",
+                         lambda: phase_examples(torch, card, wrappers))
+    example_launches = {k: sum(e["launches"][k] for e in examples.values()) for k in wrappers}
+    log(f"example-path launches: {example_launches}")
 
     kernels = []
     for name, rec in main_recs.items():
@@ -3295,7 +3457,9 @@ def main(argv=None) -> int:
             "launches_train_path": train_launches[name],
             "launches_dp_path": dp_launches[name],
             "launches_tp_path": tp_launches[name],
+            "launches_seq_tp_path": tp4_launches[name],
             "launches_dry_path": dry_launches[name],
+            "launches_examples_path": example_launches[name],
             **({"ops_ms": rec["ops_ms"]} if "ops_ms" in rec else {}),
         })
     log(f"store: {json.dumps(store)}")
@@ -3305,6 +3469,7 @@ def main(argv=None) -> int:
     log(f"distributed: {json.dumps(dp)}")
     log(f"mesh: {json.dumps(tp)}")
     log(f"dry run: {json.dumps(dry)}")
+    log(f"examples: {json.dumps(examples)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -31,7 +31,10 @@ ones GSPMD inserts for the reference:
   and identity backward where their partial sums leave;
 * :func:`gather_from_model` — all-gather over the model group, identity
   on each rank's slice backward: a weight a layer computes whole on every
-  model rank, and an activation split on its features;
+  model rank, and an activation split on its features or rows; with
+  ``partial=True`` the backward reduce-scatters instead (sums over the
+  model group): a weight each model rank uses on its own rows or heads
+  only, so that each holds a partial sum of its gradient;
 * :func:`gather_full` — a ``DTensor``'s whole value on every rank, for
   checkpoints and the reference's tree.
 
@@ -263,17 +266,31 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+def _reduce_scatter_sum(g, dim: int, group):
+    """This rank's block on ``dim`` of the sum of ``g`` over ``group``,
+    summed in float32."""
+    n = _size(group)
+    blocks = torch.cat(g.float().chunk(n, dim=dim), dim=0).contiguous()
+    count("model_reduce_scatter", blocks)
+    out = torch.empty((blocks.shape[0] // n,) + tuple(blocks.shape[1:]), dtype=blocks.dtype,
+                      device=blocks.device)
+    dist.reduce_scatter_tensor(out, blocks, group=group)
+    return out.to(g.dtype)
+
+
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
+    def forward(ctx, x, dim, group, partial):
+        ctx.dim, ctx.group, ctx.partial = dim, group, partial
         out = _all_gather(x, dim, group)
         count("model_all_gather", out)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        return _my_slice(g, ctx.dim, ctx.group), None, None
+        if ctx.partial:
+            return _reduce_scatter_sum(g, ctx.dim, ctx.group), None, None, None
+        return _my_slice(g, ctx.dim, ctx.group), None, None, None
 
 
 def zero3_gather(x, dim: int, group):
@@ -296,11 +313,14 @@ def reduce_from_model(x, group):
     return x if _size(group) == 1 else _ReduceFromModel.apply(x, group)
 
 
-def gather_from_model(x, dim: int, group):
+def gather_from_model(x, dim: int, group, partial: bool = False):
     """``x``'s blocks over ``group`` concatenated on ``dim``; the backward
     takes this rank's slice of the gradient, which every rank of the group
-    holds whole (the gathered value is used alike on each)."""
-    return x if _size(group) == 1 else _GatherFromModel.apply(x, dim, group)
+    holds whole (the gathered value is used alike on each), or with
+    ``partial`` sums each rank's part of it over the group and keeps this
+    rank's slice (a reduce-scatter: each used the value on its own rows or
+    heads)."""
+    return x if _size(group) == 1 else _GatherFromModel.apply(x, dim, group, partial)
 
 
 @torch.no_grad()

@@ -25,8 +25,13 @@ make is).
 ``hint(x, kind)`` is the identity without an activated mesh, and for a
 plain tensor under one.  A ``DTensor`` under an activated mesh is
 redistributed to the placements of the reference's spec for that kind
-and shape (``hint_spec``).  ``DTensor`` splits a dimension that its axes
-do not divide as ``torch.chunk`` does, into the blocks JAX pads to
+and shape (``hint_spec``).  The port's activations are plain tensors, so
+the placed attention carries out the reference's ``"heads"`` hint itself:
+``attention_axis`` is that hint's decision (heads, sequence or neither on
+``model``) under the policy ``set_activation_mesh`` stored, ``"auto"``
+without one, and ``models.attention.attention_split`` computes by it.
+``DTensor`` splits a dimension that its axes do not divide as
+``torch.chunk`` does, into the blocks JAX pads to
 (``attn_heads="tp_uneven"``).
 
 ``local_tensor`` and ``local_block`` read a ``DTensor``'s block on this
@@ -48,6 +53,7 @@ __all__ = [
     "set_activation_mesh",
     "hint",
     "hint_spec",
+    "attention_axis",
     "is_placed",
     "local_tensor",
     "local_block",
@@ -173,6 +179,27 @@ def set_activation_mesh(mesh, rules: AxisRules | None = None, policy: dict | Non
     }
 
 
+def attention_axis(shape, model_size: int, policy: str | None = None) -> str | None:
+    """What ``model`` splits of a ``[B, S, H, hd]`` attention activation
+    under the ``attn_heads`` policy (``policy``, else the one
+    ``set_activation_mesh`` stored, ``"auto"`` without an activated mesh),
+    on a model axis of ``model_size``: ``"heads"`` (``H``; unevenly only
+    under ``"tp_uneven"``), ``"seq"`` (``S``) or ``None``, as the
+    reference's ``hint(x, "heads")``."""
+    if policy is None:
+        policy = _ACT["policy"].get("attn_heads", "auto") if _ACT is not None else "auto"
+    _, s, h = tuple(shape)[:3]
+    tp_ok = h % model_size == 0 or (policy == "tp_uneven" and h >= model_size)
+    seq_ok = s % model_size == 0 and s > 1
+    if policy == "batch_only":
+        return None
+    if policy == "seq" and seq_ok:
+        return "seq"
+    if tp_ok:
+        return "heads"
+    return "seq" if seq_ok else None
+
+
 def hint_spec(shape, kind: str) -> tuple:
     """The reference's spec for a ``kind`` tensor of ``shape`` under the
     activated mesh (``hint``'s layout), entries as ``PartitionSpec`` keeps
@@ -191,37 +218,20 @@ def hint_spec(shape, kind: str) -> tuple:
         raise RuntimeError("no activation mesh: call set_activation_mesh first")
     shape = tuple(shape)
     dp, ms = _ACT["dp"], _ACT["model_size"]
-    heads_mode = _ACT["policy"].get("attn_heads", "auto")
     b_ok = shape[0] > 1
     dpx = dp if b_ok else None
+
+    def on(axis, want):
+        return "model" if axis == want else None
+
     if kind == "hidden":
         spec = (dpx, *([None] * (len(shape) - 1)))
     elif kind == "heads":
-        tp_ok = shape[2] % ms == 0 or (heads_mode == "tp_uneven" and shape[2] >= ms)
-        seq_ok = shape[1] % ms == 0 and shape[1] > 1
-        if heads_mode == "batch_only":
-            spec = (dpx, None, None, None)
-        elif heads_mode == "seq" and seq_ok:
-            spec = (dpx, "model", None, None)
-        elif tp_ok:
-            spec = (dpx, None, "model", None)
-        elif seq_ok:
-            spec = (dpx, "model", None, None)
-        else:
-            spec = (dpx, None, None, None)
+        axis = attention_axis(shape, ms)
+        spec = (dpx, on(axis, "seq"), on(axis, "heads"), None)
     elif kind == "bhst":
-        tp_ok = shape[1] % ms == 0 or (heads_mode == "tp_uneven" and shape[1] >= ms)
-        seq_ok = shape[2] % ms == 0 and shape[2] > 1
-        if heads_mode == "batch_only":
-            spec = (dpx, None, None, None)
-        elif heads_mode == "seq" and seq_ok:
-            spec = (dpx, None, "model", None)
-        elif tp_ok:
-            spec = (dpx, "model", None, None)
-        elif seq_ok:
-            spec = (dpx, None, "model", None)
-        else:
-            spec = (dpx, None, None, None)
+        axis = attention_axis((shape[0], shape[2], shape[1]), ms)
+        spec = (dpx, on(axis, "heads"), on(axis, "seq"), None)
     elif kind in ("ffn", "logits"):
         spec = (dpx, None, "model" if shape[-1] % ms == 0 else None)
     elif kind == "experts":

@@ -63,9 +63,15 @@ reference's keys; those that mean something else than XLA's:
   ``card`` the card's name and power limit (``nvidia-smi``).
 
 ``cur_len`` of a decode step is ``seq_len - 1`` (a full cache).  The
-``--attn-heads`` policy is recorded, but the port's placed layers decide
-their split from the placement (``models.attention.attention_split``),
-so it changes nothing.
+``--attn-heads`` policy (``auto``, the default, ``seq``, ``batch_only`` or
+``tp_uneven``) changes the program as in the reference: the run activates
+it with the mesh (``set_activation_mesh``), and each placed attention
+layer of a train or prefill step splits by heads, by sequence or not at
+all as the reference's ``hint(x, "heads")`` decides under it
+(``models.attention.attention_split``; a decode step's split follows the
+placement alone, as the reference's decode has no head hint).  The record
+keeps the policy in ``overrides`` and each layer's split in
+``attn_split``.
 """
 
 from __future__ import annotations
@@ -94,6 +100,7 @@ from ..distributed.sharding import (batch_sharding, block_of, cache_sharding, de
                                     set_activation_mesh)
 from ..models.blocks import cache_shapes
 from ..models.convert import place_model, shape_tree
+from ..models.model import attention_splits
 from ..optim.adamw import AdamWConfig
 from .mesh import make_mesh, make_production_mesh
 from .steps import (abstract_caches, abstract_model, abstract_opt_state, attn_plan, input_specs,
@@ -113,6 +120,7 @@ _HLO_KIND = {
     "zero3_gather": "all-gather",
     "model_all_gather": "all-gather",
     "zero3_reduce_scatter": "reduce-scatter",
+    "model_reduce_scatter": "reduce-scatter",
     "model_all_reduce": "all-reduce",
     "dp_mean_all_reduce": "all-reduce",
     "norm_all_reduce": "all-reduce",
@@ -304,6 +312,7 @@ def _run_step(cfg, shape, mesh, rules, plan, device, dtype, cache_dtype,
                                             device, cache_dtype,
                                             on_micro=lambda i: marks.append(counts()))
         parts = {k: _storage_bytes(v) for k, v in state.items()}
+        splits = attention_splits(model, cfg, None if shape.kind == "decode" else shape.seq_len)
         if shape.kind == "train":  # each gradient is a block placed as its parameter
             parts["grads"] = sum(_local(p).numel() * p.element_size() for p in params)
         state_bytes = sum(v for k, v in parts.items() if k != "grads")
@@ -340,6 +349,7 @@ def _run_step(cfg, shape, mesh, rules, plan, device, dtype, cache_dtype,
         "traffic": traffic,
         "collectives": _hlo_collectives(traffic),
         "n_micro_run": n_run,
+        "attn_split": splits,
         "build_s": build_s,
         "run_s": run_s,
     }
@@ -475,6 +485,7 @@ def lower_cell(arch_name: str, shape_name: str, multi_pod: bool, overrides: dict
         all_micro = bool(overrides.get("all_micro"))
         res = _run_step(cfg, shape, mesh, rules, plan, dev, dtype, cache_dtype, all_micro)
         record["n_micro_run"] = res["n_micro_run"]
+        record["attn_split"] = res["attn_split"]
         record["lower_s"] = round(res["build_s"], 2)
         record["compile_s"] = round(res["run_s"], 2)
         record["memory_analysis"] = res["memory"]

@@ -23,9 +23,13 @@ reduce-scattered and averaged over them, and that block is then averaged
 over the pod group; the gradients of the parameters the data ranks
 replicate are averaged over ``("pod", "data")`` after the backward (not
 over the world: the model ranks already agree); nothing is reduced twice.  AdamW runs on the blocks, its clip on the
-global norm.  Where the model axis cuts a head or the SSM's fused
-segments, a layer gathers its weights over the model ranks and computes
-whole there (``models.model.replicated_over_model`` names them).  The
+global norm.  Where the model axis cuts a query head, attention runs on
+its weights gathered over the model ranks, split by sequence (or by
+uneven blocks of heads, under ``attn_heads="tp_uneven"``), and sums their
+gradients there; where it cuts a KV head or the SSM's fused segments, a
+layer gathers those weights and computes whole there
+(``models.model.replicated_over_model`` names every gathered weight,
+``attention_splits`` each layer's split: ``models.attention``).  The
 numbers are the one-device step's on the global batch up to float order;
 for an MoE, its ``n_micro = dp`` step (each data rank's router sees its
 own block).

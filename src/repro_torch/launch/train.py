@@ -23,9 +23,13 @@ model ranks, an axis that does not divide a dimension demoted to
 replication; both AdamW moments follow.  The step
 (``steps.make_train_step(mesh=...)``) computes tensor-parallel over the
 model ranks and averages the gradients over the data ranks; where the
-model axis cuts a head or the SSM's fused segments, a layer computes whole
-on every model rank, and ``models.replicated_over_model`` names its
-weights (rank 0 prints them; none for qwen2-0.5b at ``(2, 2)``).  The
+model axis cuts a query head, attention splits by sequence under the
+reference's default ``attn_heads="auto"`` (``models.attention``), and where
+it cuts a KV head or the SSM's fused segments, a layer computes those
+projections whole on every model rank.  ``models.replicated_over_model``
+names the weights gathered over the model ranks and
+``models.attention_splits`` each layer's split (rank 0 prints both; no
+weight and ``heads`` for qwen2-0.5b at ``(2, 2)``).  The
 ranks of one data coordinate take the same block of each global batch
 (``TokenPipeline(data_shards=dp, shard_id=data coordinate)``), so the data
 blocks together are the global batch and the numbers are the one-device
@@ -47,6 +51,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from collections import Counter
 
 import torch
 import torch.distributed as dist
@@ -60,7 +65,7 @@ from ..distributed.elastic import StepWatchdog
 from ..distributed.sharding import local_tensor, param_sharding
 from ..models.convert import (copy_tree, place_model, shape_tree, spec_tree, to_reference,
                               tree_values)
-from ..models.model import init_model, replicated_over_model
+from ..models.model import attention_splits, init_model, replicated_over_model
 from ..optim.adamw import AdamWConfig, adamw_init
 from .mesh import local_mesh, mesh_coords, rank_device
 from .steps import attn_plan, make_train_step
@@ -129,10 +134,12 @@ def train_loop(
     if mesh is not None:  # every rank made the same weights; each keeps its blocks
         sh = param_sharding(mesh, spec_tree(model), shapes_tree=shape_tree(model))
         place_model(model, sh)
-        replicated = replicated_over_model(model, cfg)
+        replicated = replicated_over_model(model, cfg, shape.seq_len)
         if rank == 0:
-            print(f"mesh {tuple(mesh.mesh.shape)} (data, model); computed whole on every model "
-                  f"rank: {replicated or 'none'}", flush=True)
+            splits = Counter(s for s in attention_splits(model, cfg, shape.seq_len) if s)
+            print(f"mesh {tuple(mesh.mesh.shape)} (data, model); gathered over the model "
+                  f"ranks: {replicated or 'none'}; attention split "
+                  f"{', '.join(f'{k} x{n}' for k, n in splits.items()) or 'none'}", flush=True)
     opt_state = adamw_init(model)
 
     dslog = DSLog(root=lineage_dir, device=dev) if lineage_dir and rank == 0 else None

@@ -5,6 +5,7 @@ from .blocks import init_caches  # noqa: F401
 from .convert import copy_tree, from_reference, to_reference  # noqa: F401
 from .model import (  # noqa: F401
     LM,
+    attention_splits,
     decode_step,
     forward,
     init_model,

@@ -11,15 +11,38 @@ Decode writes the new token's K/V into the preallocated cache in place
 (the reference's ``dynamic_update_slice`` returns a new cache) and attends
 against the *unrepeated* cache with a grouped einsum.
 
-On a mesh whose model axis splits the projections (``attention_split``),
-each rank computes its own heads: ``q``/``k``/``v`` column-parallel and
-``o`` row-parallel when the split falls on head boundaries for both the
-query and the KV heads.  Where it cuts a KV head (the reduced configs'
-2 KV heads over 4 model ranks), ``k``/``v`` are computed whole on every
-model rank and each rank takes the KV heads of its query heads; where it
-cuts a query head (qwen2-0.5b's 14 heads over 4), the whole layer is
-computed on every model rank.  Those weights are gathered over the model
-ranks, and ``gathered_over_model`` names them.
+On a mesh whose model axis (``m`` ranks) splits the projections, the
+reference's ``hint(x, "heads")`` decides the split under the
+``attn_heads`` policy (``distributed.sharding.attention_axis``: the policy
+``set_activation_mesh`` stored, ``"auto"`` without one), and
+``attention_split`` maps it onto the weights' placement:
+
+* ``"heads"`` — heads on ``model``, ``m`` dividing the query and KV
+  heads: each rank its own heads, ``q``/``k``/``v`` column-parallel and
+  ``o`` row-parallel;
+* ``"q_heads"`` — the same where the split cuts a KV head (the reduced
+  configs' 2 KV heads over 4): ``k``/``v`` whole on every model rank, each
+  rank takes the KV heads of its query heads;
+* ``"uneven"`` — heads on ``model`` under ``"tp_uneven"`` where ``m``
+  does not divide them: each rank its ``torch.chunk`` block of the heads
+  (JAX's padded blocks: 4, 4, 4, 2 for 14 over 4) from the weights
+  gathered over ``model``, the partial outputs summed over ``model``;
+* ``"seq"`` — the sequence on ``model`` (``"auto"`` where the heads do
+  not divide and the sequence does, ``"seq"`` wherever it does): each
+  rank projects ``q`` for its block of rows, attends them against the
+  whole K/V and projects them by ``o``; the output rows are gathered over
+  ``model``, and the scores peak at ``[B, H, S/m, chunk]`` a rank;
+* ``"whole"`` — neither (``"batch_only"``, a sequence ``m`` does not
+  divide): every head of every row on every model rank.
+
+In ``"uneven"`` and ``"seq"`` each rank uses the gathered weights on its
+own heads or rows, so their gradients are summed over the model ranks
+(``layers.weight(..., partial=True)``); in ``"whole"`` every rank computes
+the same whole gradient and keeps its block.  ``gathered_over_model``
+names the weights a mode gathers.  Decode (``S = 1``) has no sequence to
+split and the reference's decode no head hint: its split follows the
+placement alone (``"heads"``/``"q_heads"`` where ``m`` divides the query
+heads, else ``"whole"``).
 
 Decode on a mesh takes the caches placed by ``cache_sharding``.  Where
 they hold this rank's KV heads (KV heads over ``model``), it computes its
@@ -42,10 +65,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..distributed.collectives import (copy_to_model, flash_decode_combine, gather_from_model,
-                                       local_partial_attention)
-from ..distributed.sharding import hint
+                                       local_partial_attention, reduce_from_model)
+from ..distributed.sharding import attention_axis, hint
 from .layers import (Dense, Init, apply_rope, dense, enter_model, model_group, model_rank,
-                     model_size, model_split)
+                     model_size, model_split, weight)
 
 __all__ = ["Attention", "attention_block", "decode_attention_block", "attention_split",
            "gathered_over_model", "SeqBlock", "NEG_INF", "GLOBAL_WINDOW"]
@@ -64,18 +87,29 @@ class Attention(nn.Module):
         self.o = Dense(init, cfg.n_heads * hd, d, ("tp", "fsdp"))
 
 
-def attention_split(p: Attention, cfg) -> tuple[str, int, int]:
-    """``(mode, query heads, KV heads)`` this rank computes, from the
-    placement of ``p``'s weights and the head counts:
+def _uneven_heads(n_heads: int, m: int, r: int) -> tuple[int, int]:
+    """``(first head, heads)`` of rank ``r``'s ``torch.chunk`` block of
+    ``n_heads`` over ``m`` (none past the last block)."""
+    k = -(-n_heads // m)
+    lo = min(r * k, n_heads)
+    return lo, min(k, n_heads - lo)
 
-    * ``"heads"`` — the model axis splits ``q`` and ``k`` on head
-      boundaries: this rank's heads, ``o`` row-parallel;
-    * ``"q_heads"`` — it splits ``q`` on head boundaries but cuts a KV
-      head: ``k``/``v`` whole on every model rank, this rank's query heads;
-    * ``"whole"`` — otherwise (plain weights, a model axis of one, or a cut
-      query head): every head on every model rank."""
+
+def attention_split(p: Attention, cfg, seq_len: int | None = None) -> tuple[str, int, int]:
+    """``(mode, query heads, KV heads)`` this rank computes for a sequence
+    of ``seq_len`` (``None``: decode), from the ``attn_heads`` policy, the
+    placement of ``p``'s weights and the head counts (module doc):
+    ``"heads"``, ``"q_heads"``, ``"uneven"``, ``"seq"`` or ``"whole"``."""
     m = model_size(p.q.w)
-    if model_split(p.q.w) != 1 or model_split(p.o.w) != 0 or cfg.n_heads % m:
+    if m == 1:
+        return "whole", cfg.n_heads, cfg.n_kv_heads
+    shape = (1, 1 if seq_len is None else seq_len, cfg.n_heads)
+    axis = attention_axis(shape, m, "auto" if seq_len is None else None)
+    if axis == "seq":
+        return "seq", cfg.n_heads, cfg.n_kv_heads
+    if axis == "heads" and cfg.n_heads % m:
+        return "uneven", _uneven_heads(cfg.n_heads, m, model_rank(p.q.w))[1], cfg.n_kv_heads
+    if axis != "heads" or model_split(p.q.w) != 1 or model_split(p.o.w) != 0:
         return "whole", cfg.n_heads, cfg.n_kv_heads
     hq = cfg.n_heads // m
     if model_split(p.k.w) == 1 and cfg.n_kv_heads % m == 0:
@@ -83,11 +117,11 @@ def attention_split(p: Attention, cfg) -> tuple[str, int, int]:
     return "q_heads", hq, cfg.n_kv_heads
 
 
-def gathered_over_model(p: Attention, cfg) -> list:
+def gathered_over_model(p: Attention, cfg, seq_len: int | None = None) -> list:
     """The names (``k.w``, …) of ``p``'s parameters split over the model
-    ranks that ``attention_split`` computes whole, so gathers."""
-    mode, _, _ = attention_split(p, cfg)
-    names = {"whole": ("q", "k", "v", "o"), "q_heads": ("k", "v")}.get(mode, ())
+    ranks that ``attention_split``'s mode for ``seq_len`` gathers there."""
+    mode, _, _ = attention_split(p, cfg, seq_len)
+    names = ("k", "v") if mode == "q_heads" else () if mode == "heads" else ("q", "k", "v", "o")
     return [f"{n}.{t}" for n in names for t in ("w", "b")
             if getattr(getattr(p, n), t) is not None
             and model_split(getattr(getattr(p, n), t)) is not None]
@@ -146,23 +180,30 @@ def _chunked_attention(q, k, v, q_pos, k_pos, causal, window, chunk):
     return out.to(q.dtype)
 
 
-def _causal_blocked_attention(q, k, v, q_pos, k_pos, causal, window, chunk):
-    """Triangular q-block schedule: query chunk ``qi`` attends only KV
-    chunks ``<= qi``, halving causal-attention FLOPs against masking a full
-    S x S sweep."""
-    s = q.shape[1]
-    if s % chunk:
-        raise ValueError("causal_blocked needs seq divisible by chunk")
+def _causal_blocked_attention(q, k, v, q_pos, k_pos, causal, window, chunk, q0=0):
+    """Triangular q-block schedule: the query rows ``[lo, hi)`` of a chunk
+    attend only the keys before ``hi``, halving causal-attention FLOPs
+    against masking a full S x S sweep.  ``q`` holds the rows from ``q0``
+    (a block of the sequence, split over the model ranks)."""
+    sq = q.shape[1]
     outs = []
-    for lo in range(0, s, chunk):
-        hi = lo + chunk
+    for lo in range(0, sq, chunk):
+        hi = min(lo + chunk, sq)
         outs.append(
             _chunked_attention(
-                q[:, lo:hi], k[:, :hi], v[:, :hi], q_pos[lo:hi], k_pos[:hi],
+                q[:, lo:hi], k[:, :q0 + hi], v[:, :q0 + hi], q_pos[lo:hi], k_pos[:q0 + hi],
                 causal, window, chunk,
             )
         )
     return torch.cat(outs, dim=1)
+
+
+def _head_cols(p: Dense, x, lo: int, n: int, hd: int):
+    """``x`` by the columns of heads ``[lo, lo + n)`` of ``p``'s weights
+    gathered over the model ranks (their gradients summed there)."""
+    cols = slice(lo * hd, (lo + n) * hd)
+    y = x @ weight(p.w, True, True)[:, cols]
+    return y if p.b is None else y + weight(p.b, True, True)[cols]
 
 
 def attention_block(
@@ -179,7 +220,8 @@ def attention_block(
     """Full-sequence attention (training / prefill).
 
     x: [B, S, D].  ``window``: sliding-window size (``None``: global).
-    Returns [B, S, D] (and pre-repeat K/V when ``return_kv``).  ``mode`` is
+    Returns [B, S, D] (and pre-repeat K/V when ``return_kv``: this rank's
+    KV heads under ``"heads"``, every KV head otherwise).  ``mode`` is
     ``dot``, ``chunked``, ``causal_blocked`` or ``auto`` (dot up to 2,048
     tokens), as in the reference.
     """
@@ -190,35 +232,51 @@ def attention_block(
     dev = x.device
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
-    split, n_q, n_kv = attention_split(p, cfg)
+    pos1 = torch.arange(s, dtype=torch.int32, device=dev)
+    split, n_q, n_kv = attention_split(p, cfg, s)
     whole = split == "whole"
-    xq = x if whole else enter_model(x, p.q.w)
-    # k/v whole from the replicated x, then into the model region where each
-    # rank takes the KV heads of its own query heads
-    q = _split_heads(dense(p.q, xq, whole), n_q, hd)
-    k = dense(p.k, xq if split == "heads" else x, split != "heads")
-    v = dense(p.v, xq if split == "heads" else x, split != "heads")
-    if split == "q_heads":
-        k, v = copy_to_model(k, model_group(p.q.w)), copy_to_model(v, model_group(p.q.w))
+    rows = slice(0, s)
+    if split in ("seq", "uneven"):  # whole weights, on this rank's rows or heads
+        group = model_group(p.q.w)
+        xm = copy_to_model(x, group)
+        if split == "seq":
+            n = s // model_size(p.q.w)
+            rows = slice(model_rank(p.q.w) * n, (model_rank(p.q.w) + 1) * n)
+            q = dense(p.q, xm[:, rows], True, True)
+        else:
+            lo, _ = _uneven_heads(cfg.n_heads, model_size(p.q.w), model_rank(p.q.w))
+            q = _head_cols(p.q, xm, lo, n_q, hd)
+        k, v = dense(p.k, xm, True, True), dense(p.v, xm, True, True)
+    else:
+        xq = x if whole else enter_model(x, p.q.w)
+        q = dense(p.q, xq, whole)
+        # k/v whole from the replicated x, then into the model region where each
+        # rank takes the KV heads of its own query heads
+        k = dense(p.k, xq if split == "heads" else x, split != "heads")
+        v = dense(p.v, xq if split == "heads" else x, split != "heads")
+        if split == "q_heads":
+            k, v = copy_to_model(k, model_group(p.q.w)), copy_to_model(v, model_group(p.q.w))
+            lo = model_rank(p.q.w) * n_q
+    q = _split_heads(q, n_q, hd)
     k, v = _split_heads(k, n_kv, hd), _split_heads(v, n_kv, hd)
-    q = hint(apply_rope(q, positions, cfg.rope_theta), "heads")
+    q = hint(apply_rope(q, positions[:, rows], cfg.rope_theta), "heads")
     k = apply_rope(k, positions, cfg.rope_theta)
     kv_keep = (k, v)
-    if split == "q_heads":
-        lo = model_rank(p.q.w) * n_q
+    if split in ("q_heads", "uneven"):  # the KV heads of this rank's query heads
         k = _repeat_kv(k, cfg.n_heads)[:, :, lo:lo + n_q]
         v = _repeat_kv(v, cfg.n_heads)[:, :, lo:lo + n_q]
-    k = hint(_repeat_kv(k, n_q), "heads")
-    v = hint(_repeat_kv(v, n_q), "heads")
+    else:
+        k, v = _repeat_kv(k, n_q), _repeat_kv(v, n_q)
+    k, v = hint(k, "heads"), hint(v, "heads")
 
     causal = not cfg.encoder_only
-    pos1 = torch.arange(s, dtype=torch.int32, device=dev)
+    q_pos = pos1[rows]
     if mode == "auto":
         mode = "dot" if s <= 2048 else "chunked"
     if mode == "dot":
-        out = _dot_attention(q, k, v, _mask_bias(pos1, pos1, causal, window))
+        out = _dot_attention(q, k, v, _mask_bias(q_pos, pos1, causal, window))
     elif mode == "causal_blocked" and causal and s % chunk == 0:
-        out = _causal_blocked_attention(q, k, v, pos1, pos1, causal, window, chunk)
+        out = _causal_blocked_attention(q, k, v, q_pos, pos1, causal, window, chunk, rows.start)
     else:
         pad = (-s) % chunk
         kp = pos1
@@ -227,9 +285,16 @@ def attention_block(
             k = F.pad(k, (0, 0, 0, 0, 0, pad))
             v = F.pad(v, (0, 0, 0, 0, 0, pad))
             kp = torch.cat([pos1, torch.full((pad,), -(10**9), dtype=torch.int32, device=dev)])
-        out = _chunked_attention(q, k, v, pos1, kp, causal, window, chunk)
-    out = hint(out.reshape(b, s, n_q * hd), "ffn")
-    y = hint(dense(p.o, out, whole), "hidden")
+        out = _chunked_attention(q, k, v, q_pos, kp, causal, window, chunk)
+    out = hint(out.reshape(b, out.shape[1], n_q * hd), "ffn")
+    if split == "seq":  # this rank's rows, then every rank's
+        y = gather_from_model(dense(p.o, out, True, True), 1, group)
+    elif split == "uneven":  # this rank's heads' rows of o, summed over the ranks
+        o_rows = weight(p.o.w, True, True)[lo * hd:(lo + n_q) * hd]
+        y = reduce_from_model(out @ o_rows, group)
+    else:
+        y = dense(p.o, out, whole)
+    y = hint(y, "hidden")
     if return_kv:
         return y, kv_keep
     return y

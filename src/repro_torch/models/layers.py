@@ -28,7 +28,9 @@ caller puts its input into the model region once, ``enter_model``), on
 its input dimension row-parallel (this rank's rows, then the sum over the
 model ranks), and a weight replicated there is plain.  A layer that
 computes whole on every model rank (``whole=True``) gathers its weights
-over the model ranks too.  Plain tensors take the plain path unchanged.
+over the model ranks too; one that takes the whole weights to its own
+rows or heads (``partial=True`` as well) sums their gradients over the
+model ranks.  Plain tensors take the plain path unchanged.
 """
 
 from __future__ import annotations
@@ -99,23 +101,30 @@ def enter_model(x, w):
     return x if model_split(w) is None else copy_to_model(x, model_group(w))
 
 
-def weight(w, whole: bool = False):
+def weight(w, whole: bool = False, partial: bool = False):
     """The tensor a layer computes with: ``w`` itself when plain; for a
     ``DTensor``, this rank's block with each dimension split over the data
     ranks gathered (``zero3_gather``: its gradient comes back
     reduce-scattered) and, with ``whole``, the dimension split over the
-    model ranks gathered too (``gather_from_model``).  Differentiable."""
+    model ranks gathered too (``gather_from_model``).  With ``partial``
+    (and ``whole``) each model rank uses the weight on its own rows or
+    heads, so its gradient is summed over the model ranks: reduce-scattered
+    where they split it, all-reduced where they replicate it.
+    Differentiable."""
     if not is_placed(w):
         return w
     x, mesh = w.to_local(), w.device_mesh
     for i in reversed(range(mesh.ndim)):
         p = w.placements[i]
-        if not p.is_shard() or mesh.size(i) == 1:
+        if mesh.size(i) == 1:
             continue
         if mesh.mesh_dim_names[i] != "model":
-            x = zero3_gather(x, p.dim, mesh.get_group(i))
-        elif whole:
-            x = gather_from_model(x, p.dim, mesh.get_group(i))
+            if p.is_shard():
+                x = zero3_gather(x, p.dim, mesh.get_group(i))
+        elif p.is_shard() and whole:
+            x = gather_from_model(x, p.dim, mesh.get_group(i), partial)
+        elif not p.is_shard() and partial:
+            x = copy_to_model(x, mesh.get_group(i))
     return x
 
 
@@ -159,18 +168,19 @@ class Dense(nn.Module):
         self.specs = {"w": tuple(spec), "b": (spec[-1],)}
 
 
-def dense(p: Dense, x, whole: bool = False):
+def dense(p: Dense, x, whole: bool = False, partial: bool = False):
     """``x @ w + b``.  On a placed weight (module doc): this rank's columns
     when ``w`` is split over the model ranks on its output dimension (``x``
     entered the model region), the sum over the model ranks when on its
     input dimension (``x`` holds this rank's block of features), and the
-    whole product with ``whole``.  A bias takes its weight's output
-    placement, and is added after the sum."""
-    y = x @ weight(p.w, whole)
+    whole product with ``whole`` (``partial``: on this rank's rows, the
+    gradients summed over the model ranks, ``weight``).  A bias takes its
+    weight's output placement, and is added after the sum."""
+    y = x @ weight(p.w, whole, partial)
     if not whole and model_split(p.w) == 0:
         y = reduce_from_model(y, model_group(p.w))
     if p.b is not None:
-        y = y + weight(p.b, whole)
+        y = y + weight(p.b, whole, partial)
     return y
 
 

@@ -22,7 +22,8 @@ over the model ranks; the head gives this rank's block of the vocab
 ``lm_loss``'s cross-entropy reduces the maximum, the sum of exponentials
 and the label's logit over the model ranks (``_VocabParallelNLL``).  The tied table takes both
 gradients in one block.  ``replicated_over_model`` names the weights
-split over the model ranks that a layer computes whole.  ``prefill`` and
+split over the model ranks that a layer gathers whole, and
+``attention_splits`` each layer's split of its attention.  ``prefill`` and
 ``decode_step`` gather the last token's logits over the model ranks, so
 they return every vocab id (for ``argmax``).
 """
@@ -52,6 +53,7 @@ __all__ = [
     "decode_step",
     "init_caches",
     "replicated_over_model",
+    "attention_splits",
 ]
 
 
@@ -209,23 +211,31 @@ def lm_loss(model: LM, batch: dict, cfg: ArchConfig, *, mode="auto", chunk=512,
     return loss + aux_weight * aux, (loss, aux)
 
 
-def replicated_over_model(model: LM, cfg: ArchConfig) -> list:
+def replicated_over_model(model: LM, cfg: ArchConfig, seq_len: int | None = None) -> list:
     """The reference tree paths (``layers/attn/k/w``, …) of the weights
-    split over the model ranks that a layer computes whole on every model
-    rank, gathering them there: KV projections that cut a KV head, every
-    projection of an attention that cuts a query head
-    (``attention.attention_split``), and the SSM block's
-    (``ssm.gathered_over_model``).  Empty without a mesh, and for
-    qwen2-0.5b on a ``(2, 2)`` mesh."""
+    split over the model ranks that a layer gathers whole there for a
+    sequence of ``seq_len`` (``None``: a decode step): KV projections that
+    cut a KV head, every projection of an attention split unevenly by
+    heads, by sequence or not at all (``attention.attention_split``), and
+    the SSM block's (``ssm.gathered_over_model``).  Empty without a mesh,
+    and for qwen2-0.5b on a ``(2, 2)`` mesh."""
     names = set()
     for layer in model.layers:
         if hasattr(layer, "attn"):
             names.update(f"layers/attn/{n.replace('.', '/')}"
-                         for n in attn_mod.gathered_over_model(layer.attn, cfg))
+                         for n in attn_mod.gathered_over_model(layer.attn, cfg, seq_len))
         if hasattr(layer, "ssm"):
             names.update(f"layers/ssm/{n.replace('.', '/')}"
                          for n in ssm_mod.gathered_over_model(layer.ssm))
     return sorted(names)
+
+
+def attention_splits(model: LM, cfg: ArchConfig, seq_len: int | None = None) -> list:
+    """Each layer's ``attention.attention_split`` mode for a sequence of
+    ``seq_len`` (``None``: a decode step), ``None`` for a layer without
+    attention."""
+    return [attn_mod.attention_split(layer.attn, cfg, seq_len)[0] if hasattr(layer, "attn")
+            else None for layer in model.layers]
 
 
 # --------------------------------------------------------------------------- #

@@ -97,7 +97,8 @@ TP_MESHES = ("2x2", "1x4", "4x1")
 # the vocab-parallel layer cases on a (1, 2) mesh: (arch, changes to its
 # reduced() config, MoE dispatch); vocab 250 pads to 256, ids 250-255 in
 # model rank 1's half; "cut_heads" has 3 query heads of 16, which 2 model
-# ranks cut, so its attention computes whole on both; "moe_sorted" splits
+# ranks cut, so its attention computes whole on both under the batch_only
+# policy (test_torch_attn_split.py runs the others); "moe_sorted" splits
 # the experts' F under the gather/scatter dispatch
 TP2_VOCAB = 250
 TP2_LM = {"tied": ("qwen2-0.5b", {}, None), "untied": ("qwen1.5-32b", {}, None),
@@ -126,3 +127,25 @@ SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 8, 4, 16
 # the pod axis: a (2, 1, 2) ("pod", "data", "model") mesh, DP_STEPS steps
 POD_MESH = ((2, 1, 2), ("pod", "data", "model"))
 POD_ARCHS = ("qwen2-0.5b", "qwen2-moe-a2.7b")
+
+# placed attention under the attn_heads policies (test_torch_attn_split.py):
+# (arch, changes to its reduced() config) — reduced() itself (4 query and 2 KV
+# heads) and query heads that a model axis of 2 or 4 cuts (3 over 2 or 4, 6
+# over 4); the names run on a (1, W) mesh of W ranks; each case's loss and
+# gradients in every attention mode (mode, chunk: a padded chunked sweep, a
+# causal_blocked one whose chunks span the ranks' rows), one train step and
+# placed prefill
+ATTN_LM = {"reduced": ("qwen2-0.5b", {}),
+           "cut3": ("qwen2-0.5b", {"n_heads": 3, "n_kv_heads": 1, "head_dim": 16}),
+           "cut6": ("qwen2-0.5b", {"n_heads": 6, "n_kv_heads": 2, "head_dim": 16}),
+           "gemma_cut3": ("gemma3-4b", {"n_heads": 3, "n_kv_heads": 1, "head_dim": 16})}
+ATTN_WORLDS = {2: ("reduced", "cut3", "gemma_cut3"), 4: ("reduced", "cut3", "cut6")}
+ATTN_MODES = (("auto", 512), ("chunked", 6), ("causal_blocked", 8))
+
+
+def attn_cfg(configs, name):
+    """``ATTN_LM[name]``'s config from either package's ``configs``."""
+    import dataclasses
+
+    arch, changes = ATTN_LM[name]
+    return dataclasses.replace(configs.get_arch(arch).reduced(), **changes)

@@ -451,11 +451,13 @@ def task_tp2(rank, world, io):
     from rank 0): column- and row-parallel ``dense`` with gradients; the
     vocab-parallel lookup, head and cross-entropy of a tied and an untied
     model with padded ids (``forward``'s logits, ``lm_loss`` and its
-    gradient); ``global_norm`` of trees placed on (1, 2) and (2, 1)."""
+    gradient; the cut-head model's under ``attn_heads="batch_only"``);
+    ``global_norm`` of trees placed on (1, 2) and (2, 1)."""
     import _dist_cases as K
     import repro_torch.configs as tconfigs
     from repro_torch.distributed.collectives import gather_full, reduce_from_model
     from repro_torch.distributed.elastic import reshard_tree
+    from repro_torch.distributed.sharding import set_activation_mesh
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.convert import from_reference, spec_tree, to_reference
     from repro_torch.models.layers import Dense, Init, dense, enter_model, model_group
@@ -503,15 +505,21 @@ def task_tp2(rank, world, io):
     for name in K.TP2_LM:
         cfg = K.tp2_cfg(tconfigs, name)
         tree = K.unflat({k[len(name) + 1:]: v for k, v in inp.items() if k.startswith(name + "/")})
-        model = _place(from_reference(cfg, tree, device="cpu"), mesh)
-        res[f"{name}/replicated"] = np.asarray(replicated_over_model(model, cfg))
-        lo, _ = vocab_block(model, cfg)
-        logits, _ = forward(model, {"tokens": tokens}, cfg)
-        full = [torch.empty_like(logits) for _ in range(2)]
-        dist.all_gather(full, logits.detach().contiguous(), group=mesh.get_group("model"))
-        total, (ce, _) = lm_loss(model, {"tokens": tokens}, cfg)
-        params = list(model.parameters())
-        grads = torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True)
+        if name == "cut_heads":  # whole on both ranks: the batch_only policy
+            set_activation_mesh(mesh, policy={"attn_heads": "batch_only"})
+        try:
+            model = _place(from_reference(cfg, tree, device="cpu"), mesh)
+            res[f"{name}/replicated"] = np.asarray(
+                replicated_over_model(model, cfg, tokens.shape[1]))
+            lo, _ = vocab_block(model, cfg)
+            logits, _ = forward(model, {"tokens": tokens}, cfg)
+            full = [torch.empty_like(logits) for _ in range(2)]
+            dist.all_gather(full, logits.detach().contiguous(), group=mesh.get_group("model"))
+            total, (ce, _) = lm_loss(model, {"tokens": tokens}, cfg)
+            params = list(model.parameters())
+            grads = torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True)
+        finally:
+            set_activation_mesh(None)
         res[f"{name}/lo"] = np.asarray(lo)
         res[f"{name}/logits"] = torch.cat(full, dim=-1).numpy()
         res[f"{name}/ce"] = ce.detach().numpy()
@@ -527,6 +535,65 @@ def task_tp2(rank, world, io):
     if rank == 0:
         np.savez(os.path.join(io, "tp2.npz"), **res)
     return {"lo": {k: int(res[f"{k}/lo"]) for k in K.TP2_LM}}
+
+
+def task_attnsplit(rank, world, io):
+    """``ATTN_WORLDS[world]``'s cases on a (1, world) mesh under every
+    ``attn_heads`` policy (``"auto"`` with no activation mesh, as
+    ``train_loop`` runs; the others activated with the mesh): each layer's
+    attention split, ``lm_loss`` and its gradients in every
+    ``ATTN_MODES`` mode, placed prefill's last-token logits, and one
+    placed train step's parameters and metrics, gathered, to
+    ``IO/attnsplit<W>.npz`` from rank 0."""
+    import _dist_cases as K
+    import repro_torch.configs as tconfigs
+    from repro_torch.distributed.sharding import set_activation_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import attn_plan, make_prefill_step, make_train_step
+    from repro_torch.models.convert import from_reference, to_reference
+    from repro_torch.models.model import attention_splits, lm_loss
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    inp = dict(np.load(os.path.join(io, "attnsplit_inputs.npz")))
+    mesh = make_mesh((1, world), ("data", "model"), device="cpu")
+    tokens = torch.from_numpy(inp["tokens"])
+    batch = {"tokens": tokens}
+    shape = tconfigs.ShapeConfig("attn", DP_SEQ, DP_BATCH, "train")
+    res, splits = {}, {}
+    for name in K.ATTN_WORLDS[world]:
+        cfg = K.attn_cfg(tconfigs, name)
+        tree = K.unflat({k[len(name) + 1:]: v for k, v in inp.items() if k.startswith(name + "/")})
+        for policy in K.POLICIES:
+            key = f"{name}/{policy}"
+            if policy != "auto":
+                set_activation_mesh(mesh, policy={"attn_heads": policy})
+            try:
+                model = _place(from_reference(cfg, tree, device="cpu"), mesh)
+                splits[key] = attention_splits(model, cfg, DP_SEQ)
+                params = list(model.parameters())
+                for mode, chunk in K.ATTN_MODES:
+                    total, _ = lm_loss(model, batch, cfg, mode=mode, chunk=chunk)
+                    grads = torch.autograd.grad(total, params, allow_unused=True,
+                                                materialize_grads=True)
+                    res[f"{key}/{mode}/loss"] = total.detach().numpy()
+                    for path, g in K.flat(to_reference(model, grads)).items():
+                        res[f"{key}/{mode}/grad/{path}"] = g
+                pre_shape = tconfigs.ShapeConfig("attn", DP_SEQ, DP_BATCH, "prefill")
+                pre = make_prefill_step(cfg, pre_shape, attn_plan(cfg, pre_shape),
+                                        mesh=mesh)(model, batch)
+                res[f"{key}/prefill"] = pre[:, 0].numpy()
+                step = make_train_step(cfg, AdamWConfig(**DP_OPT), attn_plan(cfg, shape, 1),
+                                       mesh=mesh)
+                model, _, m = step(model, adamw_init(model), batch)
+                for k, v in m.items():
+                    res[f"{key}/step/metric/{k}"] = v.numpy()
+                for path, a in K.flat(to_reference(model)).items():
+                    res[f"{key}/step/param/{path}"] = a
+            finally:
+                set_activation_mesh(None)
+    if rank == 0:
+        np.savez(os.path.join(io, f"attnsplit{world}.npz"), **res)
+    return {"splits": splits}
 
 
 # --------------------------------------------------------------------------- #
@@ -679,6 +746,31 @@ def task_dryreal(rank, world, io):
     return out
 
 
+def task_dryrealcut(rank, world, io):
+    """The cut-head step ``test_torch_dryrun.py`` dry-runs on a fake group
+    of 8, on 8 real ``gloo`` ranks: qwen2-0.5b at ``reduced()``, float32,
+    a ``smoke_train`` step on (1, 8), whose 8 model ranks cut its 4 query
+    heads, so its attention splits by sequence under ``"auto"``; on zeros,
+    the step's ``collectives.traffic`` and attention splits."""
+    import repro_torch.configs as tconfigs
+    from repro_torch.distributed import collectives as col
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import attn_plan, make_train_step
+    from repro_torch.models import attention_splits, init_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    cfg = tconfigs.get_arch("qwen2-0.5b").reduced()
+    mesh = make_mesh((1, world), ("data", "model"), device="cpu")
+    shape = tconfigs.smoke_shape("train")
+    model = _place(init_model(cfg, 0, device="cpu"), mesh)
+    step = make_train_step(cfg, AdamWConfig(), attn_plan(cfg, shape, 1), mesh=mesh)
+    batch = {"tokens": torch.zeros((shape.global_batch, shape.seq_len), dtype=torch.int32)}
+    col.traffic.clear()
+    step(model, adamw_init(model), batch)
+    return {"train": {k: list(v) for k, v in col.traffic.items()},
+            "splits": attention_splits(model, cfg, shape.seq_len)}
+
+
 def task_cardserve(rank, world, io):
     """``test_torch_gpu.py``: qwen2-0.5b and mamba2-780m at ``reduced()``
     (``init_model(seed 5)`` on ``cuda:0``) on a (1, 2) mesh of 2 ranks
@@ -714,8 +806,9 @@ def task_cardserve(rank, world, io):
 
 
 TASKS = {"sharding": task_sharding, "dp4": task_dp4, "dp2": task_dp2, "tp4": task_tp4,
-         "tpmesh": task_tpmesh, "tp2": task_tp2, "serve": task_serve, "pod": task_pod,
-         "dryreal": task_dryreal, "cardserve": task_cardserve}
+         "tpmesh": task_tpmesh, "tp2": task_tp2, "attnsplit": task_attnsplit,
+         "serve": task_serve, "pod": task_pod, "dryreal": task_dryreal,
+         "dryrealcut": task_dryrealcut, "cardserve": task_cardserve}
 
 
 def main():

@@ -21,7 +21,13 @@ against the JAX package's, on the CPU.
   a train step of 4 microbatches run as 2 (the rest counted) the run of
   all 4, peak memory included.
 * The fake group's collectives equal ``collectives.traffic`` of the same
-  steps on 4 real ``gloo`` ranks, exactly (``_dist_port.py dryreal``).
+  steps on 4 real ``gloo`` ranks, exactly (``_dist_port.py dryreal``), and
+  of a step whose 8 model ranks cut its query heads on 8 (``dryrealcut``).
+* ``--attn-heads`` changes the program: on (1, 8), which cuts the 4 query
+  heads of qwen2's ``reduced()``, ``auto`` splits each attention layer by
+  sequence and ``batch_only`` computes it whole; both flop counts equal an
+  analytic count, ``auto``'s below ``batch_only``'s by the attention's
+  share times ``1 - 1/8``.
 
 Every dry run is a subprocess: it starts its own fake process group.
 """
@@ -114,6 +120,12 @@ def runs(tmp_path_factory):
                              "--global-batch", "8", "--skip-account", "--all-micro", "--tag",
                              "all_micro", "--arch", ",".join(MICRO_ARCHS), "--shape",
                              "smoke_train"),
+        "cut": _dryrun(out, "--mesh", "1x8", "--reduced", "--param-dtype", "float32",
+                       "--skip-account", "--tag", "cut", "--arch", "qwen2-0.5b", "--shape",
+                       "smoke_train"),
+        "cut_bo": _dryrun(out, "--mesh", "1x8", "--reduced", "--param-dtype", "float32",
+                          "--skip-account", "--attn-heads", "batch_only", "--tag", "cut_bo",
+                          "--arch", "qwen2-0.5b", "--shape", "smoke_train"),
         "state16": _dryrun(out, "--state-only"),
         "state512": _dryrun(out, "--state-only", "--multi-pod"),
     }
@@ -121,8 +133,10 @@ def runs(tmp_path_factory):
                             os.path.join(io, "ref_state.json")], env=_env(),
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     real = start("dryreal", K.WORLD, io)
+    real_cut = start("dryrealcut", 8, io)
     try:
         real_traffic = finish(real)
+        real_cut = finish(real_cut)
         logs = {k: _wait(p, k) for k, p in procs.items()}
         _wait(ref, "reference state bytes")
     finally:
@@ -130,7 +144,8 @@ def runs(tmp_path_factory):
             p.kill()
     with open(os.path.join(io, "ref_state.json")) as f:
         ref_state = json.load(f)
-    return {"out": out, "logs": logs, "ref_state": ref_state, "real": real_traffic}
+    return {"out": out, "logs": logs, "ref_state": ref_state, "real": real_traffic,
+            "real_cut": real_cut}
 
 
 # --------------------------------------------------------------------------- #
@@ -270,6 +285,42 @@ def test_flops_equal_an_analytic_count(runs):
     assert remat["cost_analysis"]["flops"] == _analytic_flops(True)
 
 
+def _cut_flops(split: str) -> float:
+    """Rank 0's products ×3 for qwen2-0.5b's reduced() train step on
+    (1, 8): both sequences of 32 tokens (``T`` = 64), 4 of 256 d_ff, 32 of
+    the 256 vocab ids, d_model 64; the attention (4 query and 2 KV heads of
+    16) whole, or under ``"seq"`` ``q``, ``o`` and the scores for the
+    rank's 4 rows of each sequence (``k``/``v`` whole)."""
+    q = dict(B=2, S=32, D=64, hd=16, h=4, kv=2, f=16, v=32, L=2, m=8)
+    t = q["B"] * q["S"]
+    rows = 1 / q["m"] if split == "seq" else 1
+    layer = 2 * t * q["D"] * 2 * q["kv"] * q["hd"]  # k, v
+    layer += rows * 2 * t * q["D"] * 2 * q["h"] * q["hd"]  # q, o
+    layer += rows * 2 * 2 * q["B"] * q["h"] * q["S"] * q["S"] * q["hd"]  # scores, weights on v
+    layer += 3 * 2 * t * q["D"] * q["f"]  # up, gate, down
+    return 3 * (q["L"] * layer + 2 * t * q["D"] * q["v"])
+
+
+def test_attn_heads_changes_the_program(runs):
+    """``--attn-heads``: on (1, 8) ``auto`` splits both attention layers by
+    sequence, ``batch_only`` computes them whole; each flop count equals
+    the analytic one, and ``auto``'s falls below ``batch_only``'s by the
+    attention's share (``q``, ``o``, the scores and their weights on
+    ``v``) times ``1 - 1/8``, so does its peak."""
+    auto = _record(runs["out"], "mesh1x8_cut", "qwen2-0.5b", "smoke_train")
+    whole = _record(runs["out"], "mesh1x8_cut_bo", "qwen2-0.5b", "smoke_train")
+    assert auto["attn_split"] == ["seq", "seq"] and whole["attn_split"] == ["whole", "whole"]
+    assert auto["overrides"].get("attn_heads") is None
+    assert whole["overrides"]["attn_heads"] == "batch_only"
+    assert auto["cost_analysis"]["flops"] == _cut_flops("seq")
+    assert whole["cost_analysis"]["flops"] == _cut_flops("whole")
+    share = _cut_flops("whole") - _cut_flops("seq")
+    assert share == pytest.approx(3 * 2 * (2 * 64 * 64 * 2 * 64 + 4 * 2 * 4 * 32 * 32 * 16)
+                                  * (1 - 1 / 8))
+    assert auto["memory_analysis"]["peak_bytes"] < whole["memory_analysis"]["peak_bytes"]
+    assert auto["state_bytes_per_device"] == whole["state_bytes_per_device"]
+
+
 @pytest.mark.parametrize("arch", ACCOUNT_ARCHS)
 def test_account_cell_extrapolation_equals_the_full_count(runs, arch):
     """At 4 layers, ``c1 + 3 (c2 - c1)`` from the 1- and 2-layer runs equals
@@ -294,12 +345,22 @@ def test_two_microbatches_count_as_all(runs, arch):
         assert got[key] == want[key], key
 
 
-@pytest.mark.parametrize("kind", ["train", "decode"])
+@pytest.mark.parametrize("kind", ["train", "decode", "cut_heads"])
 def test_fake_traffic_equals_real_ranks(runs, kind):
-    """The fake group's rank 0 issues the collectives that 4 real ``gloo``
+    """The fake group's rank 0 issues the collectives that real ``gloo``
     ranks issue in the same step, call for call and byte for byte: a
-    (2, 2) train step, and a batch-1 decode step whose sequence lies over
-    ``("data", "model")`` on (1, 4)."""
+    (2, 2) train step, a batch-1 decode step whose sequence lies over
+    ``("data", "model")`` on (1, 4), and a (1, 8) train step whose
+    attention splits by sequence (its weights gathered over the model
+    ranks, their gradients reduce-scattered there)."""
+    if kind == "cut_heads":
+        rec = _record(runs["out"], "mesh1x8_cut", "qwen2-0.5b", "smoke_train")
+        for r in runs["real_cut"]:
+            assert r["train"] == rec["traffic"]
+            assert r["splits"] == rec["attn_split"] == ["seq", "seq"]
+        # q, k, v with biases and o gathered in each layer, their gradients summed
+        assert rec["traffic"]["model_reduce_scatter"][0] == 7 * 2
+        return
     mesh = "2x2" if kind == "train" else "1x4"
     rec = _record(runs["out"], f"mesh{mesh}_f32", "qwen2-0.5b", f"smoke_{kind}")
     for r in runs["real"]:

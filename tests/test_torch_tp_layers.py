@@ -6,8 +6,10 @@ and the CLI under ``torchrun``, on the CPU, against the JAX package.
   with their gradients; the vocab-parallel lookup, head and cross-entropy
   of a tied and an untied model whose padded ids (vocab 250, padded to
   256) fall in model rank 1's half and whose labels fall in both, of one
-  with 3 query heads, which 2 model ranks cut (its attention computes
-  whole on both), and of an MoE under the gather/scatter dispatch;
+  with 3 query heads, which 2 model ranks cut (under
+  ``attn_heads="batch_only"`` its attention computes whole on both; the
+  other policies are ``test_torch_attn_split.py``'s), and of an MoE under
+  the gather/scatter dispatch;
   ``global_norm`` of a placed tree, equal to the reference's on the whole
   tree.
 * qwen2 and qwen2-moe on a (1, 4) mesh (tensor parallelism alone: 2 KV
@@ -119,8 +121,9 @@ def test_vocab_parallel_lookup_head_and_cross_entropy(layers, name):
     table, or columns of the untied head): the gathered logits (padded ids
     at -1e30, masked by their global id in rank 1's half), the
     cross-entropy and every parameter's gradient equal the reference's.
-    With 3 query heads the attention's weights are gathered over the model
-    ranks (``replicated_over_model`` names them) and its gradients still
+    With 3 query heads under ``attn_heads="batch_only"`` the attention's
+    weights are gathered over the model ranks and it computes whole on
+    both (``replicated_over_model`` names them) and its gradients still
     land in each rank's blocks; the sorted MoE dispatch sums its experts'
     partial outputs after the scatter-add."""
     cfg = K.tp2_cfg(jconfigs, name)
@@ -285,7 +288,8 @@ def test_train_cli_model_parallel_under_torchrun(tmp_path):
         capture_output=True, text=True, env=env, cwd=str(tmp_path), timeout=240)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     assert r.stdout.count("step     2 loss") == 1, r.stdout
-    assert "mesh (2, 2) (data, model); computed whole on every model rank: none" in r.stdout
+    assert "mesh (2, 2) (data, model); gathered over the model ranks: none; attention split " \
+        "heads x2" in r.stdout
 
 
 def test_the_port_trains_a_vlm_whose_patches_the_reference_leaves_out():
