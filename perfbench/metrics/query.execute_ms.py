@@ -1,0 +1,10 @@
+"""Median duration of the ``execute`` span of ``prov_query(trace=True)``."""
+
+import statistics
+
+NAME, UNIT, BETTER, SOURCE = "query.execute_ms", "ms", "lower", "program_span"
+LAYER, MOVES = "core/query.py", "query_p95_ms"
+
+
+def read(run):
+    return statistics.median(run.execute_s) * 1e3 if run.execute_s else None
