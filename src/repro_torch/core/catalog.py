@@ -55,7 +55,7 @@ from repro_torch.kernels.autotune import GeometryTuner
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.obs.export import telemetry_snapshot
 from repro_torch.obs.metrics import IoStatsView, MetricsRegistry
-from repro_torch.obs.trace import QueryTrace, maybe_span
+from repro_torch.obs.trace import QueryTrace, activated, maybe_span, timed
 
 from . import _locks
 from .commit import CommitPipeline, WriterLease
@@ -107,6 +107,12 @@ SEED_COUNTERS = (
     # cross-product tiles the block-diagonal layout skipped
     "batch_tiles_visited",
     "batch_tiles_skipped",
+    # every join a query runs, by the route it took: the interval index,
+    # the dense kernel (one batched dispatch's segment, or a per-hop
+    # range_join_mask launch), the dense numpy path
+    "joins_index",
+    "joins_dense_kernel",
+    "joins_dense_twin",
     # materialized views + answer cache (repro/core/views.py)
     "view_hits",
     "view_misses",
@@ -418,9 +424,6 @@ class DSLog:
         self.metrics.seed_counters(SEED_COUNTERS)
         self.metrics.register_collector(self._collect_gauges)
         self.io_stats = IoStatsView(self.metrics)
-        # per-query structured tracing (prov_query(..., trace=True));
-        # None = off, the only cost on untraced hot paths.
-        self._active_trace: QueryTrace | None = None
         # durability subsystem (attached by open()/load(); None = legacy
         # explicit-save store with no write-ahead log)
         self._wal: WriteAheadLog | None = None
@@ -621,10 +624,10 @@ class DSLog:
         self._meta_dirty = True
         self._drop_hop_stats(lineage_id)
         self.views.on_mutation(lineage_id)
-        blobs = [bwd.serialize(compress=self.gzip)]
+        blobs = [self._serialize(bwd)]
         meta = {"id": lineage_id, "fwd": fwd is not None}
         if fwd is not None:
-            blobs.append(fwd.serialize(compress=self.gzip))
+            blobs.append(self._serialize(fwd))
         self._wal_append_entry("dirty", meta, blobs)
 
     # -- internal plumbing --------------------------------------------- #
@@ -663,7 +666,8 @@ class DSLog:
         # they flush synchronously (below) and never truncate, so a torn
         # tail is the worst a crash leaves.  Truncation stays lease-gated
         # in the save()/checkpoint paths.
-        wal.append(rtype, meta, blobs)  # dsflow: ignore[wal-lease]
+        with timed(self.metrics, "ingest_seconds", "wal_append"):
+            wal.append(rtype, meta, blobs)  # dsflow: ignore[wal-lease]
         if self._pipeline is not None:
             self._pipeline.notify(wal)
         else:  # no pipeline attached (plain load): stay conservative
@@ -677,8 +681,13 @@ class DSLog:
         """Log an entry-level record (entry bytes, in-place invalidation)."""
         self._wal_emit(self._wal, rtype, meta, blobs)
 
+    def _serialize(self, table: CompressedTable) -> bytes:
+        """A table's stored bytes (the ``serialize`` stage of the build)."""
+        with timed(self.metrics, "ingest_seconds", "serialize"):
+            return table.serialize(compress=self.gzip)
+
     def _entry_wal_record(self, entry: LineageEntry) -> tuple[dict, list]:
-        blobs = [entry.backward.serialize(compress=self.gzip)]
+        blobs = [self._serialize(entry.backward)]
         meta = {
             "id": entry.lineage_id,
             "src": entry.src,
@@ -690,7 +699,7 @@ class DSLog:
             "fwd": entry.has_forward,
         }
         if entry.has_forward:
-            blobs.append(entry.forward.serialize(compress=self.gzip))
+            blobs.append(self._serialize(entry.forward))
         return meta, blobs
 
     def _replay_store_record(self, rec: WalRecord) -> bool:
@@ -847,12 +856,13 @@ class DSLog:
         if tables is not None:
             bwd, fwd = tables
         else:
-            bwd = compress(relation, "backward", self.compress_method)
-            fwd = (
-                compress(relation, "forward", self.compress_method)
-                if self.store_forward
-                else None
-            )
+            with timed(self.metrics, "ingest_seconds", "compress"):
+                bwd = compress(relation, "backward", self.compress_method)
+                fwd = (
+                    compress(relation, "forward", self.compress_method)
+                    if self.store_forward
+                    else None
+                )
         return self._insert_entry(src, dst, bwd, fwd, op_name, reused_from)
 
     def _insert_entry(
@@ -1038,7 +1048,8 @@ class DSLog:
             raise ValueError(
                 f"no confirmed reuse mapping for {op_name} and no capture given"
             )
-        rels = capture()
+        with timed(self.metrics, "ingest_seconds", "capture"):
+            rels = capture()
         captured_tables: dict[str, CompressedTable] = {}
         try:
             for (oi, ii), rel in rels.items():
@@ -1062,10 +1073,7 @@ class DSLog:
                         "shapes": [list(s) for s in shapes_token],
                         "labels": labels,
                     },
-                    [
-                        captured_tables[label].serialize(compress=self.gzip)
-                        for label in labels
-                    ],
+                    [self._serialize(captured_tables[label]) for label in labels],
                 )
         self.ops.append(rec)
         self._wal_append_root("op", self._op_wal_meta(rec))
@@ -1094,8 +1102,9 @@ class DSLog:
         """Forward table from a reused backward table (via decompress only
         when small; otherwise serve forward queries with the inverse join)."""
         if bwd.n_rows <= 4096:
-            rel = bwd.decompress()
-            return compress(rel, "forward", self.compress_method)
+            with timed(self.metrics, "ingest_seconds", "derive_forward"):
+                rel = bwd.decompress()
+                return compress(rel, "forward", self.compress_method)
         return None
 
     # ------------------------------------------------------------------ #
@@ -1127,9 +1136,11 @@ class DSLog:
         per-hop join loop — results are bit-identical either way.
 
         ``trace=True`` returns ``(result, QueryTrace)`` instead: a span
-        tree (plan / hop / kernel launch / cache probe / view race) with
-        per-span wall time and instrument deltas.  Tracing never changes
-        the answer.
+        tree (``plan`` and ``execute`` with their instrument deltas, the
+        executor's and the kernels' spans below ``execute`` — see
+        :mod:`repro_torch.obs.trace` — hops, cache probe, view race) with
+        per-span wall time, mirrored as ``dslog::`` ranges while
+        ``torch.profiler`` records.  Tracing never changes the answer.
         """
         form = self._parse_query_args(args)
         if form[0] == "path":
@@ -1189,17 +1200,14 @@ class DSLog:
             if workers and workers > 1
             else ("batched" if use_batched else "serial")
         )
-        prev = self._active_trace
-        if tr is not None:
-            self._active_trace = tr
         t0 = time.perf_counter()
         try:
-            out, path_label = self._query_batch_impl(
-                args, merge, parallel, batched, tr, engine
-            )
+            with activated(tr):
+                out, path_label = self._query_batch_impl(
+                    args, merge, parallel, batched, tr, engine
+                )
         finally:
             if tr is not None:
-                self._active_trace = prev
                 tr.finish()
         # per-path query latency: cache hit / view shortcut / full plan,
         # split by execution engine
@@ -1225,10 +1233,10 @@ class DSLog:
             if not queries:
                 return [], "path"
             boxes = self._as_boxes(path[0], queries)
-            with maybe_span(tr, "plan", kind="plan", form="path") as sp:
+            with maybe_span(tr, "plan", kind="plan", deltas=True, form="path") as sp:
                 plan = self.planner.plan_path(path, frontier=boxes, batched=batched)
                 sp.attrs["est_cost"] = round(plan.est_cost, 3)
-            with maybe_span(tr, "execute", kind="execute", engine=engine):
+            with maybe_span(tr, "execute", kind="execute", deltas=True, engine=engine):
                 out = self.planner.execute(
                     plan, boxes, merge=merge, parallel=parallel, batched=batched
                 )[path[-1]]
@@ -1256,7 +1264,7 @@ class DSLog:
             self.views.note_route(src, targets)
         # plans are cell-independent: a hot route replans only after an
         # invalidation, admission, or demotion changes the shortcut race
-        with maybe_span(tr, "plan", kind="plan", form="graph") as sp:
+        with maybe_span(tr, "plan", kind="plan", deltas=True, form="graph") as sp:
             plan = self.views.plan_get(src, targets, batched)
             sp.attrs["memo"] = plan is not None
             if plan is None:
@@ -1275,7 +1283,7 @@ class DSLog:
             )
             else "planned"
         )
-        with maybe_span(tr, "execute", kind="execute", engine=engine):
+        with maybe_span(tr, "execute", kind="execute", deltas=True, engine=engine):
             out = self.planner.execute(
                 plan, boxes, merge=merge, parallel=parallel, batched=batched
             )
@@ -1411,7 +1419,7 @@ class DSLog:
 
     def _write_entry(self, e: LineageEntry) -> dict:
         fn = f"lineage_{e.lineage_id}.prvc"
-        blob = e.backward.serialize(compress=self.gzip)
+        blob = self._serialize(e.backward)
         _write_blob(os.path.join(self.root, fn), blob)
         self._bump("tables_written")
         self._bump("bytes_written", len(blob))
@@ -1430,7 +1438,7 @@ class DSLog:
         }
         if e.forward is not None:
             fwd_fn = f"lineage_{e.lineage_id}_fwd.prvc"
-            blob = e.forward.serialize(compress=self.gzip)
+            blob = self._serialize(e.forward)
             _write_blob(os.path.join(self.root, fwd_fn), blob)
             self._bump("tables_written")
             self._bump("bytes_written", len(blob))
@@ -1442,7 +1450,7 @@ class DSLog:
         return rec
 
     def _write_view_blob(self, fn: str, table: CompressedTable) -> None:
-        blob = table.serialize(compress=self.gzip)
+        blob = self._serialize(table)
         _write_blob(os.path.join(self.root, fn), blob)
         self._bump("tables_written")
         self._bump("bytes_written", len(blob))
@@ -1458,7 +1466,7 @@ class DSLog:
 
         def save_table(key: str, label: str, tbl: CompressedTable) -> str:
             fn = _sig_blob_name(key, label)
-            blob = tbl.serialize(compress=self.gzip)
+            blob = self._serialize(tbl)
             _write_blob(os.path.join(root, fn), blob)
             self._bump("sig_tables_written")
             self._bump("bytes_written", len(blob))

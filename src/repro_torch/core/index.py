@@ -33,6 +33,8 @@ import json
 
 import numpy as np
 
+from repro_torch.obs import trace as obs_trace
+
 __all__ = ["IntervalIndex", "interval_stats", "ragged_ranges"]
 
 _IDX_MAGIC = b"PRVCIDX1\n"
@@ -166,6 +168,7 @@ class IntervalIndex:
         starts, ends = windows if windows is not None else self.probe_windows(q_lo, q_hi)
         return int((ends - starts).min(axis=1).sum())
 
+    @obs_trace.spanned("query.index", "query")
     def candidate_pairs(
         self,
         q_lo: np.ndarray,

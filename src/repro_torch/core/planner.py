@@ -46,6 +46,8 @@ from typing import TYPE_CHECKING, Iterable, Sequence
 
 import numpy as np
 
+from repro_torch.obs import trace as obs_trace
+
 from .query import (
     DENSE_FRACTION,
     INDEX_MIN_ROWS,
@@ -228,7 +230,6 @@ class QueryPlanner:
                 device=self.log.device,
                 tuner=getattr(self.log, "autotune", None),
                 metrics=getattr(self.log, "metrics", None),
-                trace_source=lambda: getattr(self.log, "_active_trace", None),
             )
         return self._executor
 
@@ -346,7 +347,7 @@ class QueryPlanner:
             vplan = self._view_plan(
                 next(iter(src_set)), next(iter(dst_set)), frontier, nq0, batched
             )
-            tr = getattr(self.log, "_active_trace", None)
+            tr = obs_trace.active()
             if vplan is not None and vplan.est_cost < plan.est_cost:
                 self.log._bump("view_hits")
                 if tr is not None:
@@ -727,7 +728,8 @@ class QueryPlanner:
                 for q in qs
             ]
             if merge:
-                boxes = [merge_boxes(q) for q in boxes]
+                with obs_trace.span("planner.init", "planner"):
+                    boxes = [merge_boxes(q) for q in boxes]
             init[key] = boxes
             lengths.add(len(boxes))
         if len(lengths) > 1:
@@ -757,10 +759,11 @@ class QueryPlanner:
             # target answers are re-cut into the canonical decomposition —
             # equal cell sets become equal bytes, whatever plan produced
             # them.
-            out = {
-                name: [canonical_boxes(q) for q in boxes]
-                for name, boxes in out.items()
-            }
+            with obs_trace.span("query.canonical", "query"):
+                out = {
+                    name: [canonical_boxes(q) for q in boxes]
+                    for name, boxes in out.items()
+                }
         return out
 
     # ------------------------------------------------------------------ #
@@ -812,45 +815,46 @@ class QueryPlanner:
         timings: list[float] | None = None,
     ) -> list[QueryBox]:
         """One node's frontier: its init share plus every step's results."""
-        shape = self.log.arrays[plan.node_array[key]].shape
-        nd = len(shape)
         if key in init and not plan.steps.get(key, []):
             return init[key]
-        acc_lo: list[list[np.ndarray]] = [[] for _ in range(nB)]
-        acc_hi: list[list[np.ndarray]] = [[] for _ in range(nB)]
-        for k, q in enumerate(init.get(key, [])):
-            acc_lo[k].append(q.lo)
-            acc_hi[k].append(q.hi)
-        for i, ((step, choice, qs), res_list) in enumerate(
-            zip(gathered, res_lists)
-        ):
-            self._record_step_output(plan, step, res_list)
-            self._record_choice(
-                choice,
-                qs,
-                res_list,
-                plan=plan,
-                step=step,
-                elapsed=None if timings is None else timings[i],
-            )
-            for k, res in enumerate(res_list):
-                acc_lo[k].append(res.lo)
-                acc_hi[k].append(res.hi)
-        boxes = []
-        for k in range(nB):
-            lo = (
-                np.concatenate(acc_lo[k])
-                if acc_lo[k]
-                else np.zeros((0, nd), np.int64)
-            )
-            hi = (
-                np.concatenate(acc_hi[k])
-                if acc_hi[k]
-                else np.zeros((0, nd), np.int64)
-            )
-            res = QueryBox(shape, lo, hi)
-            boxes.append(merge_boxes(res) if merge else res)
-        return boxes
+        with obs_trace.span("planner.assemble", "planner"):
+            shape = self.log.arrays[plan.node_array[key]].shape
+            nd = len(shape)
+            acc_lo: list[list[np.ndarray]] = [[] for _ in range(nB)]
+            acc_hi: list[list[np.ndarray]] = [[] for _ in range(nB)]
+            for k, q in enumerate(init.get(key, [])):
+                acc_lo[k].append(q.lo)
+                acc_hi[k].append(q.hi)
+            for i, ((step, choice, qs), res_list) in enumerate(
+                zip(gathered, res_lists)
+            ):
+                self._record_step_output(plan, step, res_list)
+                self._record_choice(
+                    choice,
+                    qs,
+                    res_list,
+                    plan=plan,
+                    step=step,
+                    elapsed=None if timings is None else timings[i],
+                )
+                for k, res in enumerate(res_list):
+                    acc_lo[k].append(res.lo)
+                    acc_hi[k].append(res.hi)
+            boxes = []
+            for k in range(nB):
+                lo = (
+                    np.concatenate(acc_lo[k])
+                    if acc_lo[k]
+                    else np.zeros((0, nd), np.int64)
+                )
+                hi = (
+                    np.concatenate(acc_hi[k])
+                    if acc_hi[k]
+                    else np.zeros((0, nd), np.int64)
+                )
+                res = QueryBox(shape, lo, hi)
+                boxes.append(merge_boxes(res) if merge else res)
+            return boxes
 
     def _compute_node(
         self,
@@ -1042,10 +1046,12 @@ class QueryPlanner:
         table = entry.backward if choice.stored == "backward" else entry.forward
         if choice.frontier_on == "key":
             return theta_join_batch(
-                qs, table, merge=False, path=choice.route, device=self.log.device
+                qs, table, merge=False, path=choice.route,
+                device=self.log.device, stats=self.log._bump,
             )
         return theta_join_inverse_batch(
-            qs, table, merge=False, path=choice.route, device=self.log.device
+            qs, table, merge=False, path=choice.route,
+            device=self.log.device, stats=self.log._bump,
         )
 
     def _record_choice(
@@ -1096,7 +1102,7 @@ class QueryPlanner:
                 if elapsed is not None:
                     rec["ms"] += elapsed * 1e3
                     rec["timed"] += 1
-        tr = getattr(self.log, "_active_trace", None)
+        tr = obs_trace.active()
         if tr is not None and step is not None:
             tr.event(
                 "hop",

@@ -56,7 +56,6 @@ numpy, and the batched executor runs its numpy twin, or, with
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass, field
 from typing import Sequence
 
@@ -69,6 +68,7 @@ from repro_torch.kernels.autotune import (
     GeometryTuner,
     shape_bucket,
 )
+from repro_torch.obs import trace as obs_trace
 
 from .index import IntervalIndex, ragged_ranges
 from .intervals import coalesce_1d, lexsort_rows
@@ -178,15 +178,10 @@ def _dense_pairs(
     q_hi: np.ndarray,
     r_lo: np.ndarray,
     r_hi: np.ndarray,
-    device,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """All-pairs overlap join, blocked to bound the pair matrix."""
+    """All-pairs overlap join in numpy, blocked to bound the pair matrix."""
     nq, l = q_lo.shape
     nr = r_lo.shape[0]
-    if nq * nr >= _KERNEL_MIN_PAIRS:
-        pairs = _kernel_pairs(q_lo, q_hi, r_lo, r_hi, device)
-        if pairs is not None:
-            return pairs
     qi_list, ri_list = [], []
     block = max(1, int(4_000_000 // max(nr, 1)))
     for s in range(0, nq, block):
@@ -269,14 +264,19 @@ def _route_decision(
         return "dense", None
     if path == "auto" and nr < INDEX_MIN_ROWS:
         return "dense", None
-    index: IntervalIndex = index_get()
-    windows = None
-    if path == "auto" and index.n_attrs:
-        windows = index.probe_windows(q_lo, q_hi)  # one probe pass, reused below
-        est = index.estimate_candidates(q_lo, q_hi, windows)
-        if est > DENSE_FRACTION * nq * nr:
-            return "dense", None
+    with obs_trace.span("query.index", "query"):
+        index: IntervalIndex = index_get()
+        windows = None
+        if path == "auto" and index.n_attrs:
+            windows = index.probe_windows(q_lo, q_hi)  # one probe pass, reused below
+            est = index.estimate_candidates(q_lo, q_hi, windows)
+            if est > DENSE_FRACTION * nq * nr:
+                return "dense", None
     return "index", windows
+
+
+def _no_stats(key: str, n: int = 1) -> None:
+    pass
 
 
 def _route_pairs(
@@ -287,17 +287,31 @@ def _route_pairs(
     index_get,
     path: str,
     device,
+    stats=None,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Pick indexed vs dense execution for one range join."""
+    """Pick indexed vs dense execution for one range join.
+
+    ``stats`` (an ``io_stats`` bump callable) counts the join under the
+    route it took: ``joins_index``, ``joins_dense_kernel`` (one
+    ``range_join_mask`` launch) or ``joins_dense_twin`` (blocked numpy).
+    """
     nq, nr = q_lo.shape[0], r_lo.shape[0]
     if nq == 0 or nr == 0:
         if path not in ("auto", "index", "dense", "batched"):
             raise ValueError(f"unknown join path {path!r}")
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    stats = stats if stats is not None else _no_stats
     route, windows = _route_decision(q_lo, q_hi, r_lo, r_hi, index_get, path)
-    if route == "dense":
-        return _dense_pairs(q_lo, q_hi, r_lo, r_hi, device)
-    return index_get().candidate_pairs(q_lo, q_hi, windows)
+    if route == "index":
+        stats("joins_index")
+        return index_get().candidate_pairs(q_lo, q_hi, windows)
+    if nq * nr >= _KERNEL_MIN_PAIRS:
+        pairs = _kernel_pairs(q_lo, q_hi, r_lo, r_hi, device)
+        if pairs is not None:
+            stats("joins_dense_kernel")
+            return pairs
+    stats("joins_dense_twin")
+    return _dense_pairs(q_lo, q_hi, r_lo, r_hi)
 
 
 def _derelativize(
@@ -499,6 +513,7 @@ def _scatter_to_owners(
     return results
 
 
+@obs_trace.spanned("query.prepare", "query")
 def _prepare_batch(
     queries: Sequence[QueryBox], table: CompressedTable, inverse: bool
 ):
@@ -538,6 +553,7 @@ def _prepare_batch(
     return ("join", u_lo, u_hi, inv, r_lo, r_hi, index_get)
 
 
+@obs_trace.spanned("query.finalize", "query")
 def _finalize_batch(
     queries: Sequence[QueryBox],
     table: CompressedTable,
@@ -577,20 +593,22 @@ def theta_join_batch(
     merge: bool = True,
     path: str = "auto",
     device="cuda",
+    stats=None,
 ) -> list[QueryBox]:
     """Answer many queries against one table in a single pass.
 
     All query rows are pooled and deduplicated, so a box shared by several
     queries probes the index (or the dense matrix) exactly once; the pair
     outputs are computed once per *distinct* (box, table row) pair and then
-    scattered back to the owning queries.
+    scattered back to the owning queries.  ``stats`` counts the join by
+    route (:func:`_route_pairs`).
     """
     device = ops.resolve_device(device)
     pre = _prepare_batch(queries, table, inverse=False)
     if pre[0] == "done":
         return pre[1]
     _, u_lo, u_hi, inv, r_lo, r_hi, index_get = pre
-    ui, ri = _route_pairs(u_lo, u_hi, r_lo, r_hi, index_get, path, device)
+    ui, ri = _route_pairs(u_lo, u_hi, r_lo, r_hi, index_get, path, device, stats)
     return _finalize_batch(queries, table, False, u_lo, u_hi, inv, ui, ri, merge)
 
 
@@ -600,6 +618,7 @@ def theta_join_inverse_batch(
     merge: bool = True,
     path: str = "auto",
     device="cuda",
+    stats=None,
 ) -> list[QueryBox]:
     """Batched :func:`theta_join_inverse`: many value-side queries, one pass.
 
@@ -613,7 +632,7 @@ def theta_join_inverse_batch(
     if pre[0] == "done":
         return pre[1]
     _, u_lo, u_hi, inv, r_lo, r_hi, index_get = pre
-    ui, ri = _route_pairs(u_lo, u_hi, r_lo, r_hi, index_get, path, device)
+    ui, ri = _route_pairs(u_lo, u_hi, r_lo, r_hi, index_get, path, device, stats)
     return _finalize_batch(queries, table, True, u_lo, u_hi, inv, ui, ri, merge)
 
 
@@ -744,8 +763,10 @@ class BatchedJoinExecutor:
     overflow — see the ``np:*`` notes in ``plan.describe()``) route to the
     twin automatically.  Results are bit-identical to the serial per-hop
     loop; ``stats`` (an ``io_stats`` bump callable) meters launches, batch
-    occupancy, and the tile schedule (``batch_tiles_visited`` vs the
-    cross-product tiles the block-diagonal layout ``batch_tiles_skipped``).
+    occupancy, the tile schedule (``batch_tiles_visited`` vs the
+    cross-product tiles the block-diagonal layout ``batch_tiles_skipped``),
+    and every join by the route it took (``joins_index``,
+    ``joins_dense_kernel``, ``joins_dense_twin``).
 
     The kernel path launches at the fixed ``DEFAULT_GEOMETRY`` tiles.  The
     twin's mask-block cell budget comes from a :class:`~repro_torch.kernels.
@@ -766,7 +787,6 @@ class BatchedJoinExecutor:
         tuner: "GeometryTuner | None" = None,
         engine: str | None = None,
         metrics=None,
-        trace_source=None,
     ):
         if engine not in (None, "kernel", "twin"):
             raise ValueError(f"unknown dense engine {engine!r}")
@@ -774,10 +794,8 @@ class BatchedJoinExecutor:
         self._device = ops.resolve_device(device)
         self._tuner = tuner if tuner is not None else GeometryTuner()
         self._engine = engine
-        # optional registry (labeled autotune-decision counters) and a
-        # callable yielding the owning store's active QueryTrace (or None)
+        # optional registry (labeled autotune-decision counters)
         self._metrics = metrics
-        self._trace_source = trace_source
         self._pool = None  # lazy worker pool for twin-segment fan-out
         self._pool_width = 0
         # measured tile occupancy: EMA of (scheduled tile cells / useful
@@ -849,6 +867,7 @@ class BatchedJoinExecutor:
                 u_lo, u_hi, r_lo, r_hi, index_get, req.path
             )
             if route == "index":
+                self._stats("joins_index")
                 ui, ri = index_get().candidate_pairs(u_lo, u_hi, windows)
                 results[i] = _finalize_batch(
                     req.queries, req.table, req.inverse,
@@ -881,12 +900,13 @@ class BatchedJoinExecutor:
             # spare lane on the segment id when packing several segments —
             # expressible for any eligible subset.
             lane_slack = 1 if len(items) > 1 else 0
-            kernel_idx = [
-                k
-                for k, it in enumerate(items)
-                if 2 * (it[3].shape[1] + lane_slack) <= ops.LANES
-                and ops.fits_int32(it[2], it[3], it[5], it[6])
-            ]
+            with obs_trace.span("query.route", "query"):
+                kernel_idx = [
+                    k
+                    for k, it in enumerate(items)
+                    if 2 * (it[3].shape[1] + lane_slack) <= ops.LANES
+                    and ops.fits_int32(it[2], it[3], it[5], it[6])
+                ]
 
         def finalize(k: int, ui: np.ndarray, ri: np.ndarray) -> None:
             i, req, u_lo, u_hi, inv, _r_lo, _r_hi = items[k]
@@ -895,9 +915,7 @@ class BatchedJoinExecutor:
                 u_lo, u_hi, inv, ui, ri, req.merge,
             )
 
-        tr = self._trace_source() if self._trace_source is not None else None
         if kernel_idx:
-            t0 = time.perf_counter()
             segs = [
                 (items[k][2], items[k][3], items[k][5], items[k][6])
                 for k in kernel_idx
@@ -905,13 +923,22 @@ class BatchedJoinExecutor:
             shapes = [(s[0].shape[0], s[2].shape[0], s[0].shape[1]) for s in segs]
             backend = device.type  # "cuda" kernels or "cpu" plain versions
             geom = DEFAULT_GEOMETRY
-            seg_pairs, info = ops.segmented_range_join_pairs(
-                segs, block_q=geom[0], block_r=geom[1], device=device
+            with obs_trace.span("kernel_launch", "kernel") as sp:
+                seg_pairs, info = ops.segmented_range_join_pairs(
+                    segs, block_q=geom[0], block_r=geom[1], device=device
+                )
+            sp.attrs.update(
+                backend=backend,
+                segments=len(kernel_idx),
+                geometry=f"{geom[0]}x{geom[1]}",
+                launches=info["launches"],
+                rows=info["rows"],
             )
             for k, (ui, ri) in zip(kernel_idx, seg_pairs):
                 finalize(k, ui, ri)
             self._stats("kernel_launches", info["launches"])
             self._stats("joins_packed", len(kernel_idx))
+            self._stats("joins_dense_kernel", len(kernel_idx))
             self._stats("batch_rows", info["rows"])
             self._stats("batch_rows_padded", info["rows_padded"])
             self._stats("batch_tiles_visited", info["tiles_visited"])
@@ -920,22 +947,10 @@ class BatchedJoinExecutor:
                 float(info["tiles_visited"]) * geom[0] * geom[1],
                 float(sum(nq * nr for nq, nr, _ in shapes)),
             )
-            if tr is not None:
-                tr.event(
-                    "kernel_launch",
-                    kind="kernel",
-                    backend=backend,
-                    segments=len(kernel_idx),
-                    geometry=f"{geom[0]}x{geom[1]}",
-                    launches=info["launches"],
-                    rows=info["rows"],
-                    duration=time.perf_counter() - t0,
-                )
         done = set(kernel_idx)
         rest = [k for k in range(len(items)) if k not in done]
         if not rest:
             return
-        t0 = time.perf_counter()
         rows = sum(items[k][2].shape[0] + items[k][5].shape[0] for k in rest)
         pairs: dict[int, tuple[np.ndarray, np.ndarray]] = {}
 
@@ -949,96 +964,105 @@ class BatchedJoinExecutor:
         visited = sum(q * r for q, r in zip(seg_qb, seg_rb))
         skipped = max(0, sum(seg_qb) * sum(seg_rb) - visited)
 
-        # twin launch geometry (mask cells per row block): cached per
-        # frontier-shape bucket; an unseen bucket with a big enough lead
-        # segment measures the candidates on that segment and keeps the
-        # winner's pairs
-        block_cells = DEFAULT_TWIN_CELLS[0]
-        twin_shapes = [
-            (items[k][2].shape[0], items[k][5].shape[0], items[k][2].shape[1])
-            for k in rest
-        ]
-        twin_bucket = shape_bucket(twin_shapes)
-        twin_geom = self._tuner.lookup("np", twin_bucket)
-        if twin_geom is None:
-            k_big = max(
-                rest, key=lambda k: items[k][2].shape[0] * items[k][5].shape[0]
-            )
-            big_cells = items[k_big][2].shape[0] * items[k_big][5].shape[0]
-            if big_cells >= _TWIN_TUNE_MIN_CELLS:
-                _i, req, u_lo, u_hi, _inv, _r_lo, _r_hi = items[k_big]
-                rl_b, rh_b = req.table.dense_join_cols(
-                    "value" if req.inverse else "key"
-                )
-                twin_geom, res = self._tuner.pick(
-                    "np",
-                    twin_bucket,
-                    runner=lambda g: _twin_pairs(
-                        u_lo, u_hi, rl_b, rh_b, None, block_cells=g[0]
-                    ),
-                )
-                if self._metrics is not None:
-                    self._metrics.inc(
-                        "autotune_decisions",
-                        backend="np",
-                        bucket=str(twin_bucket),
-                    )
-                if res is not None:
-                    pairs[k_big] = res
-            else:
-                twin_geom = DEFAULT_TWIN_CELLS
-        block_cells = twin_geom[0]
-        self._twin_geometry = tuple(twin_geom)
-        todo = [k for k in rest if k not in pairs]
-
-        def eval_segments(chunk: list[int]) -> None:
-            scratch: dict = {}  # mask buffers shared within the chunk
-            for k in chunk:
-                _i, req, u_lo, u_hi, _inv, _r_lo, _r_hi = items[k]
-                rl, rh = req.table.dense_join_cols(
-                    "value" if req.inverse else "key"
-                )
-                pairs[k] = _twin_pairs(
-                    u_lo, u_hi, rl, rh, scratch, block_cells=block_cells
-                )
-
-        # clamp fan-out to real cores: the chunks only overlap while they
-        # hold no GIL, and oversubscribing 2 cores with 4 GIL-trading
-        # threads costs more in hand-offs than it buys
-        width = min(workers or 1, len(todo), os.cpu_count() or 1)
-        if width > 1:
-            # fan only the *mask evaluations* out — the twin's blocked
-            # passes are almost pure released-GIL numpy, so they overlap on
-            # real cores, while finalize (intersect/de-relativize/scatter:
-            # many small Python-held steps that would thrash the GIL across
-            # threads) stays on the calling thread.  Chunks are balanced by
-            # mask size, largest-first onto the lightest chunk; the calling
-            # thread chews chunk 0 instead of idling.  Each pair list lands
-            # in its own slot, so any worker count is bit-identical.
-            chunks: list[list[int]] = [[] for _ in range(width)]
-            loads = [0] * width
-            for k in sorted(
-                todo,
-                key=lambda k: -items[k][2].shape[0] * items[k][5].shape[0],
-            ):
-                w = loads.index(min(loads))
-                chunks[w].append(k)
-                loads[w] += items[k][2].shape[0] * items[k][5].shape[0]
-            futs = [
-                self._workers(width - 1).submit(eval_segments, c)
-                for c in chunks[1:]
+        with obs_trace.span("twin", "kernel") as sp:
+            # twin launch geometry (mask cells per row block): cached per
+            # frontier-shape bucket; an unseen bucket with a big enough lead
+            # segment measures the candidates on that segment and keeps the
+            # winner's pairs
+            block_cells = DEFAULT_TWIN_CELLS[0]
+            twin_shapes = [
+                (items[k][2].shape[0], items[k][5].shape[0], items[k][2].shape[1])
+                for k in rest
             ]
-            eval_segments(chunks[0])
-            for f in futs:
-                f.result()
-        else:
-            eval_segments(todo)
+            twin_bucket = shape_bucket(twin_shapes)
+            twin_geom = self._tuner.lookup("np", twin_bucket)
+            if twin_geom is None:
+                k_big = max(
+                    rest, key=lambda k: items[k][2].shape[0] * items[k][5].shape[0]
+                )
+                big_cells = items[k_big][2].shape[0] * items[k_big][5].shape[0]
+                if big_cells >= _TWIN_TUNE_MIN_CELLS:
+                    _i, req, u_lo, u_hi, _inv, _r_lo, _r_hi = items[k_big]
+                    rl_b, rh_b = req.table.dense_join_cols(
+                        "value" if req.inverse else "key"
+                    )
+                    twin_geom, res = self._tuner.pick(
+                        "np",
+                        twin_bucket,
+                        runner=lambda g: _twin_pairs(
+                            u_lo, u_hi, rl_b, rh_b, None, block_cells=g[0]
+                        ),
+                    )
+                    if self._metrics is not None:
+                        self._metrics.inc(
+                            "autotune_decisions",
+                            backend="np",
+                            bucket=str(twin_bucket),
+                        )
+                    if res is not None:
+                        pairs[k_big] = res
+                else:
+                    twin_geom = DEFAULT_TWIN_CELLS
+            block_cells = twin_geom[0]
+            self._twin_geometry = tuple(twin_geom)
+            todo = [k for k in rest if k not in pairs]
+
+            def eval_segments(chunk: list[int]) -> None:
+                scratch: dict = {}  # mask buffers shared within the chunk
+                for k in chunk:
+                    _i, req, u_lo, u_hi, _inv, _r_lo, _r_hi = items[k]
+                    rl, rh = req.table.dense_join_cols(
+                        "value" if req.inverse else "key"
+                    )
+                    pairs[k] = _twin_pairs(
+                        u_lo, u_hi, rl, rh, scratch, block_cells=block_cells
+                    )
+
+            # clamp fan-out to real cores: the chunks only overlap while they
+            # hold no GIL, and oversubscribing 2 cores with 4 GIL-trading
+            # threads costs more in hand-offs than it buys
+            width = min(workers or 1, len(todo), os.cpu_count() or 1)
+            if width > 1:
+                # fan only the *mask evaluations* out — the twin's blocked
+                # passes are almost pure released-GIL numpy, so they overlap on
+                # real cores, while finalize (intersect/de-relativize/scatter:
+                # many small Python-held steps that would thrash the GIL across
+                # threads) stays on the calling thread.  Chunks are balanced by
+                # mask size, largest-first onto the lightest chunk; the calling
+                # thread chews chunk 0 instead of idling.  Each pair list lands
+                # in its own slot, so any worker count is bit-identical.
+                chunks: list[list[int]] = [[] for _ in range(width)]
+                loads = [0] * width
+                for k in sorted(
+                    todo,
+                    key=lambda k: -items[k][2].shape[0] * items[k][5].shape[0],
+                ):
+                    w = loads.index(min(loads))
+                    chunks[w].append(k)
+                    loads[w] += items[k][2].shape[0] * items[k][5].shape[0]
+                futs = [
+                    self._workers(width - 1).submit(eval_segments, c)
+                    for c in chunks[1:]
+                ]
+                eval_segments(chunks[0])
+                for f in futs:
+                    f.result()
+            else:
+                eval_segments(todo)
+        sp.attrs.update(
+            backend="np",
+            segments=len(rest),
+            rows=rows,
+            block_cells=block_cells,
+            workers=width,
+        )
         for k in rest:
             finalize(k, *pairs[k])
         # the twin is one fused dispatch per frontier: count it like a
         # launch so CPU runs meter batching the same way GPU runs do
         self._stats("kernel_launches", 1)
         self._stats("joins_packed", len(rest))
+        self._stats("joins_dense_twin", len(rest))
         self._stats("batch_rows", rows)
         self._stats("batch_rows_padded", rows)
         self._stats("batch_tiles_visited", visited)
@@ -1046,17 +1070,6 @@ class BatchedJoinExecutor:
         # per-segment evaluation has no tile padding: cells-exact occupancy
         useful = float(sum(nq * nr for nq, nr, _ in twin_shapes))
         self._observe_occupancy(useful, useful)
-        if tr is not None:
-            tr.event(
-                "twin",
-                kind="kernel",
-                backend="np",
-                segments=len(rest),
-                rows=rows,
-                block_cells=block_cells,
-                workers=width,
-                duration=time.perf_counter() - t0,
-            )
 
 
 # --------------------------------------------------------------------------- #

@@ -62,7 +62,7 @@ from repro_torch.kernels.autotune import GeometryTuner
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.obs.export import telemetry_snapshot
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.obs.trace import QueryTrace
+from repro_torch.obs import trace as obs_trace
 
 from . import _locks
 from .catalog import (
@@ -486,7 +486,7 @@ class ShardedQueryPlanner(QueryPlanner):
             from_shard=str(ex.from_shard),
             to_shard=str(ex.to_shard),
         )
-        tr = getattr(self.log, "_active_trace", None)
+        tr = obs_trace.active()
         if tr is not None:
             tr.event(
                 "exchange",
@@ -594,7 +594,6 @@ class ShardedDSLog:
         self.metrics.seed_counters(SEED_COUNTERS)
         self.metrics.seed_counters(("shards_loaded", "boxes_exchanged"))
         self.metrics.register_collector(self._collect_gauges)
-        self._active_trace: QueryTrace | None = None
         # durability subsystem (attached by open(); see DSLog for the
         # single-store equivalent).  _exclusive=False is writer mode: this
         # process appends to shard WALs under per-shard leases and never
@@ -616,6 +615,7 @@ class ShardedDSLog:
     register_operation = DSLog.register_operation
     _rollback_op = DSLog._rollback_op
     _derive_forward = DSLog._derive_forward
+    _serialize = DSLog._serialize
     _check_shapes = DSLog._check_shapes
     prov_query = DSLog.prov_query
     prov_query_batch = DSLog.prov_query_batch

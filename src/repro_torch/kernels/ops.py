@@ -13,15 +13,24 @@ The packers are int32: coordinates outside the int32 range cannot ride the
 kernel path (they would silently wrap).  ``fits_int32`` is the gate callers
 use to route oversized joins to the numpy dense path; handing out-of-range
 values to a packer raises.
+
+The dense entry points count the bytes of every pack they hand to the
+device in the module-level ``h2d_bytes`` (beside the kernel wrappers'
+``launches`` counters), and open the spans ``ops.pack``, ``ops.upload``,
+``ops.launch`` and ``ops.extract`` of the active query trace
+(:mod:`repro_torch.obs.trace`).
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.obs import trace as obs_trace
 
 from .range_join import (
     LANES,
@@ -41,6 +50,10 @@ __all__ = [
 
 _I32 = np.iinfo(np.int32)
 _WIDE_UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
+
+# bytes of the packs the dense entry points handed to the device
+h2d_bytes = 0
+_h2d_lock = threading.Lock()
 
 
 def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
@@ -147,6 +160,17 @@ def _pack_run_table(
     return _pack_run_columns(group_cols, lo, hi, torch.device("cpu")).numpy()
 
 
+def _upload(device: torch.device, *packs: np.ndarray) -> list[torch.Tensor]:
+    """The packs on ``device`` (an ``ops.upload`` span), counted in
+    ``h2d_bytes``."""
+    global h2d_bytes
+    with obs_trace.span("ops.upload", "ops"):
+        out = [torch.from_numpy(p).to(device) for p in packs]
+    with _h2d_lock:
+        h2d_bytes += sum(p.nbytes for p in packs)
+    return out
+
+
 def _nonzero_rows(mask: torch.Tensor) -> np.ndarray:
     """Row-major coordinates of a mask's nonzeros, on the host (``[P, d]``
     int64, the order of ``np.nonzero`` / ``np.flatnonzero``).  Extraction
@@ -193,14 +217,15 @@ def range_join_pairs(
     if nq == 0 or nr == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
     check_lane_capacity(l)
-    _require_int32(q_lo, q_hi, r_lo, r_hi)
-    mask = range_join_mask(
-        torch.from_numpy(_pack_boxes(q_lo, q_hi, l)).to(dev),
-        torch.from_numpy(_pack_boxes(r_lo, r_hi, l)).to(dev),
-        n_attrs=l,
-    )
-    idx = _nonzero_rows(mask)
-    return idx[:, 0].astype(np.int64), idx[:, 1].astype(np.int64)
+    with obs_trace.span("ops.pack", "ops"):
+        _require_int32(q_lo, q_hi, r_lo, r_hi)
+        qp, rp = _pack_boxes(q_lo, q_hi, l), _pack_boxes(r_lo, r_hi, l)
+    q_t, r_t = _upload(dev, qp, rp)
+    with obs_trace.span("ops.launch", "ops"):
+        mask = range_join_mask(q_t, r_t, n_attrs=l)
+    with obs_trace.span("ops.extract", "ops"):
+        idx = _nonzero_rows(mask)
+        return idx[:, 0].astype(np.int64), idx[:, 1].astype(np.int64)
 
 
 def _pad_packed_rows(p: np.ndarray, mult: int, n_attrs: int) -> np.ndarray:
@@ -290,7 +315,8 @@ def _blockdiag_pairs(
     stack — only the pairs come back to the host.  Returns the per-segment
     pair lists plus (padded rows, tiles visited).
     """
-    sched = _blockdiag_schedule(segments, n_attrs, block_q, block_r)
+    with obs_trace.span("ops.pack", "ops"):
+        sched = _blockdiag_schedule(segments, n_attrs, block_q, block_r)
     tile_q, tile_r = sched.tile_q, sched.tile_r
     nrb, q_blk_off, r_blk_off = sched.nrb, sched.q_blk_off, sched.r_blk_off
     tile_start = sched.tile_start
@@ -298,43 +324,46 @@ def _blockdiag_pairs(
     empty = (np.zeros(0, np.int64), np.zeros(0, np.int64))
     if n_tiles == 0:
         return [empty for _ in segments], 0, 0
-    masks = range_join_tile_masks(
-        torch.from_numpy(sched.q).to(device),
-        torch.from_numpy(sched.r).to(device),
-        # the schedule stays on the host: the wrapper checks and uploads it
-        # dslint: ignore[int32-cast] block indices, bounded by row count/block
-        torch.from_numpy(tile_q.astype(np.int32)),
-        # dslint: ignore[int32-cast] block indices, bounded by row count/block
-        torch.from_numpy(tile_r.astype(np.int32)),
-        n_attrs=n_attrs,
-        block_q=block_q,
-        block_r=block_r,
-    )
-    flat = _nonzero_rows(masks.reshape(-1))[:, 0]
-    t, rem = np.divmod(flat, block_q * block_r)
-    lq, lr = np.divmod(rem, block_r)
-    qi_pad = tile_q[t] * block_q + lq  # global padded-row coordinates
-    ri_pad = tile_r[t] * block_r + lr
-    # tiles are segment-grouped and flatnonzero is tile-major, so one cut
-    # per segment recovers the per-join slices
-    cuts = np.searchsorted(t, tile_start[1:-1])
-    out = []
-    for s, (qs, rs) in enumerate(
-        zip(np.split(qi_pad, cuts), np.split(ri_pad, cuts))
-    ):
-        qi = qs - q_blk_off[s] * block_q
-        ri = rs - r_blk_off[s] * block_r
-        keep = (qi < segments[s][0].shape[0]) & (ri < segments[s][2].shape[0])
-        if not keep.all():
-            qi, ri = qi[keep], ri[keep]
-        if nrb[s] > 1:
-            # tiles run r-block inner, so segments spanning several r blocks
-            # need a row-major resort to match the dense oracle's pair order
-            order = np.lexsort((ri, qi))
-            qi, ri = qi[order], ri[order]
-        out.append(
-            (qi.astype(np.int64, copy=False), ri.astype(np.int64, copy=False))
+    q_t, r_t = _upload(device, sched.q, sched.r)
+    with obs_trace.span("ops.launch", "ops"):
+        masks = range_join_tile_masks(
+            q_t,
+            r_t,
+            # the schedule stays on the host: the wrapper checks and uploads it
+            # dslint: ignore[int32-cast] block indices, bounded by row count/block
+            torch.from_numpy(tile_q.astype(np.int32)),
+            # dslint: ignore[int32-cast] block indices, bounded by row count/block
+            torch.from_numpy(tile_r.astype(np.int32)),
+            n_attrs=n_attrs,
+            block_q=block_q,
+            block_r=block_r,
         )
+    with obs_trace.span("ops.extract", "ops"):
+        flat = _nonzero_rows(masks.reshape(-1))[:, 0]
+        t, rem = np.divmod(flat, block_q * block_r)
+        lq, lr = np.divmod(rem, block_r)
+        qi_pad = tile_q[t] * block_q + lq  # global padded-row coordinates
+        ri_pad = tile_r[t] * block_r + lr
+        # tiles are segment-grouped and flatnonzero is tile-major, so one cut
+        # per segment recovers the per-join slices
+        cuts = np.searchsorted(t, tile_start[1:-1])
+        out = []
+        for s, (qs, rs) in enumerate(
+            zip(np.split(qi_pad, cuts), np.split(ri_pad, cuts))
+        ):
+            qi = qs - q_blk_off[s] * block_q
+            ri = rs - r_blk_off[s] * block_r
+            keep = (qi < segments[s][0].shape[0]) & (ri < segments[s][2].shape[0])
+            if not keep.all():
+                qi, ri = qi[keep], ri[keep]
+            if nrb[s] > 1:
+                # tiles run r-block inner, so segments spanning several r blocks
+                # need a row-major resort to match the dense oracle's pair order
+                order = np.lexsort((ri, qi))
+                qi, ri = qi[order], ri[order]
+            out.append(
+                (qi.astype(np.int64, copy=False), ri.astype(np.int64, copy=False))
+            )
     rows_padded = int(sched.q.shape[0] + sched.r.shape[0])
     return out, rows_padded, n_tiles
 
@@ -380,27 +409,28 @@ def segmented_range_join_pairs(
         }
     if layout not in ("auto", "dense", "blockdiag"):
         raise ValueError(f"unknown launch layout {layout!r}")
-    l_max = max(s[0].shape[1] for s in segments)
-    for q_lo, q_hi, r_lo, r_hi in segments:
-        _require_int32(q_lo, q_hi, r_lo, r_hi)
-    nq_tot = sum(s[0].shape[0] for s in segments)
-    nr_tot = sum(s[2].shape[0] for s in segments)
-    rows = int(nq_tot + nr_tot)
-    # tile bills for both schedules over the same segments: the masked
-    # cross product pays the full grid, the diagonal pays per-segment
-    # ceil-padded blocks — auto takes the cheaper, and the difference is
-    # what io_stats reports as skipped
-    cross_tiles = -(-nq_tot // block_q) * -(-nr_tot // block_r)
-    diag_tiles = sum(
-        -(-s[0].shape[0] // block_q) * -(-s[2].shape[0] // block_r)
-        for s in segments
-    )
-    if layout == "auto":
-        layout = (
-            "blockdiag"
-            if len(segments) > 1 and diag_tiles < cross_tiles
-            else "dense"
+    with obs_trace.span("ops.pack", "ops"):
+        l_max = max(s[0].shape[1] for s in segments)
+        for q_lo, q_hi, r_lo, r_hi in segments:
+            _require_int32(q_lo, q_hi, r_lo, r_hi)
+        nq_tot = sum(s[0].shape[0] for s in segments)
+        nr_tot = sum(s[2].shape[0] for s in segments)
+        rows = int(nq_tot + nr_tot)
+        # tile bills for both schedules over the same segments: the masked
+        # cross product pays the full grid, the diagonal pays per-segment
+        # ceil-padded blocks — auto takes the cheaper, and the difference is
+        # what io_stats reports as skipped
+        cross_tiles = -(-nq_tot // block_q) * -(-nr_tot // block_r)
+        diag_tiles = sum(
+            -(-s[0].shape[0] // block_q) * -(-s[2].shape[0] // block_r)
+            for s in segments
         )
+        if layout == "auto":
+            layout = (
+                "blockdiag"
+                if len(segments) > 1 and diag_tiles < cross_tiles
+                else "dense"
+            )
     if layout == "blockdiag":
         check_lane_capacity(l_max)  # no segment lane: tiles never cross segments
         out, rows_padded, visited = _blockdiag_pairs(
@@ -431,28 +461,30 @@ def segmented_range_join_pairs(
             parts.append(p)
         return np.concatenate(parts, axis=0)
 
-    qp = pack_side([(s[0], s[1]) for s in segments])
-    rp = pack_side([(s[2], s[3]) for s in segments])
-    q_off = np.cumsum([0] + [s[0].shape[0] for s in segments])
-    r_off = np.cumsum([0] + [s[2].shape[0] for s in segments])
-    mask = range_join_mask(
-        torch.from_numpy(qp).to(dev), torch.from_numpy(rp).to(dev), n_attrs=n_attrs
-    )
-    idx = _nonzero_rows(mask)
-    qi, ri = idx[:, 0], idx[:, 1]
-    # pairs are qi-major and the segment lane confines ri to the segment's
-    # own column range, so one cut per segment recovers the per-join lists
-    cuts = np.searchsorted(qi, q_off[1:-1])
-    out = []
-    for seg, (qs, rs) in enumerate(
-        zip(np.split(qi, cuts), np.split(ri, cuts))
-    ):
-        out.append(
-            (
-                (qs - q_off[seg]).astype(np.int64),
-                (rs - r_off[seg]).astype(np.int64),
+    with obs_trace.span("ops.pack", "ops"):
+        qp = pack_side([(s[0], s[1]) for s in segments])
+        rp = pack_side([(s[2], s[3]) for s in segments])
+        q_off = np.cumsum([0] + [s[0].shape[0] for s in segments])
+        r_off = np.cumsum([0] + [s[2].shape[0] for s in segments])
+    q_t, r_t = _upload(dev, qp, rp)
+    with obs_trace.span("ops.launch", "ops"):
+        mask = range_join_mask(q_t, r_t, n_attrs=n_attrs)
+    with obs_trace.span("ops.extract", "ops"):
+        idx = _nonzero_rows(mask)
+        qi, ri = idx[:, 0], idx[:, 1]
+        # pairs are qi-major and the segment lane confines ri to the segment's
+        # own column range, so one cut per segment recovers the per-join lists
+        cuts = np.searchsorted(qi, q_off[1:-1])
+        out = []
+        for seg, (qs, rs) in enumerate(
+            zip(np.split(qi, cuts), np.split(ri, cuts))
+        ):
+            out.append(
+                (
+                    (qs - q_off[seg]).astype(np.int64),
+                    (rs - r_off[seg]).astype(np.int64),
+                )
             )
-        )
     rows_padded = int(
         -(-qp.shape[0] // block_q) * block_q + -(-rp.shape[0] // block_r) * block_r
     )

@@ -120,6 +120,10 @@ def test_executor_matches_reference(engine, merge, seed, n_tables):
     for g_list, w_list in zip(got, want):
         for g, w in zip(g_list, w_list):
             _same(g, w)
+    # the port also counts each join by its route; every join here is dense
+    routes = {k: tstats.pop(k) for k in ("joins_index", "joins_dense_kernel",
+                                         "joins_dense_twin") if k in tstats}
+    assert routes == {f"joins_dense_{engine}": jstats["joins_packed"]}
     assert tstats == jstats
     assert tstats["batch_tiles_visited"] > 0
     assert tex.measured_waste == jex.measured_waste
@@ -157,6 +161,8 @@ def test_executor_routes_overflow_to_twin_like_reference():
         [tq.JoinRequest([tb], tt, path="batched")]
     )
     _same(got[0][0], want[0][0])
+    # the port also counts the join by its route: the twin, not the kernel
+    assert tstats.pop("joins_dense_twin") == 1 and "joins_dense_kernel" not in tstats
     assert tstats == jstats
 
 
