@@ -113,6 +113,10 @@ SEED_COUNTERS = (
     "joins_index",
     "joins_dense_kernel",
     "joins_dense_twin",
+    # kernel segments whose table side was already resident on the device,
+    # and those that packed and uploaded it (CompressedTable.kernel_pack)
+    "table_packs_resident",
+    "table_packs_built",
     # materialized views + answer cache (repro/core/views.py)
     "view_hits",
     "view_misses",

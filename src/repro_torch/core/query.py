@@ -766,7 +766,12 @@ class BatchedJoinExecutor:
     occupancy, the tile schedule (``batch_tiles_visited`` vs the
     cross-product tiles the block-diagonal layout ``batch_tiles_skipped``),
     and every join by the route it took (``joins_index``,
-    ``joins_dense_kernel``, ``joins_dense_twin``).
+    ``joins_dense_kernel``, ``joins_dense_twin``).  A kernel segment's
+    table side is the table's resident pack
+    (:meth:`~repro_torch.core.table.CompressedTable.kernel_pack`): a launch
+    packs and uploads only the query side, and ``table_packs_resident`` /
+    ``table_packs_built`` count the segments that found the pack and those
+    that built it.
 
     The kernel path launches at the fixed ``DEFAULT_GEOMETRY`` tiles.  The
     twin's mask-block cell budget comes from a :class:`~repro_torch.kernels.
@@ -898,14 +903,17 @@ class BatchedJoinExecutor:
             # over-wide segments never inflate the shared pack width).  The
             # lane slack keeps the dense-layout fallback — which spends one
             # spare lane on the segment id when packing several segments —
-            # expressible for any eligible subset.
+            # expressible for any eligible subset.  The table side's int32
+            # verdict is the table's cached one: only the query side is
+            # scanned here.
             lane_slack = 1 if len(items) > 1 else 0
             with obs_trace.span("query.route", "query"):
                 kernel_idx = [
                     k
                     for k, it in enumerate(items)
                     if 2 * (it[3].shape[1] + lane_slack) <= ops.LANES
-                    and ops.fits_int32(it[2], it[3], it[5], it[6])
+                    and it[1].table.int32_safe("value" if it[1].inverse else "key")
+                    and ops.fits_int32(it[2], it[3])
                 ]
 
         def finalize(k: int, ui: np.ndarray, ri: np.ndarray) -> None:
@@ -914,6 +922,19 @@ class BatchedJoinExecutor:
                 req.queries, req.table, req.inverse,
                 u_lo, u_hi, inv, ui, ri, req.merge,
             )
+
+        def resident_pack(req: JoinRequest):
+            """The getter of a segment's table side, resident on the device
+            (``CompressedTable.kernel_pack``), counting hits and builds."""
+
+            def get():
+                pack, built = req.table.kernel_pack(
+                    "value" if req.inverse else "key", device
+                )
+                self._stats("table_packs_built" if built else "table_packs_resident")
+                return pack
+
+            return get
 
         if kernel_idx:
             segs = [
@@ -925,7 +946,11 @@ class BatchedJoinExecutor:
             geom = DEFAULT_GEOMETRY
             with obs_trace.span("kernel_launch", "kernel") as sp:
                 seg_pairs, info = ops.segmented_range_join_pairs(
-                    segs, block_q=geom[0], block_r=geom[1], device=device
+                    segs,
+                    block_q=geom[0],
+                    block_r=geom[1],
+                    device=device,
+                    r_packs=[resident_pack(items[k][1]) for k in kernel_idx],
                 )
             sp.attrs.update(
                 backend=backend,

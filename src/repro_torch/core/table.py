@@ -38,7 +38,7 @@ import io
 import json
 import zlib
 from dataclasses import dataclass, field, replace
-from typing import Callable
+from typing import TYPE_CHECKING, Callable
 
 import numpy as np
 
@@ -46,12 +46,15 @@ from . import _locks
 from .index import IntervalIndex, interval_stats
 from .relation import LineageRelation
 
+if TYPE_CHECKING:
+    import torch
+
 __all__ = ["CompressedTable", "TableHandle", "from_reference_arrays"]
 
 _MAGIC = b"PRVC1\n"
 
-# Reassigning any of these drops the cached interval indexes (see
-# ``CompressedTable.__setattr__``); for *in-place* ndarray mutation call
+# Reassigning any of these drops the cached interval indexes and kernel packs
+# (see ``CompressedTable.__setattr__``); for *in-place* ndarray mutation call
 # ``invalidate_index()`` explicitly.
 _ARRAY_FIELDS = frozenset(
     {"key_lo", "key_hi", "val_lo", "val_hi", "val_ref", "key_sym", "val_sym"}
@@ -202,6 +205,11 @@ class CompressedTable:
             cache["val_stats"] = st
         return st
 
+    def _side_bounds(self, side: str) -> tuple[np.ndarray, np.ndarray]:
+        """A join side's ``(lo, hi)``: ``"key"`` (stored key intervals) or
+        ``"value"`` (achievable value bounds)."""
+        return (self.key_lo, self.key_hi) if side == "key" else self.value_bounds()
+
     def int32_safe(self, side: str) -> bool:
         """Whether one join side's bounds survive an int32 pack, cached.
 
@@ -215,11 +223,7 @@ class CompressedTable:
         k = f"i32_{side}"
         v = cache.get(k)
         if v is None:
-            lo, hi = (
-                (self.key_lo, self.key_hi)
-                if side == "key"
-                else self.value_bounds()
-            )
+            lo, hi = self._side_bounds(side)
             info = np.iinfo(np.int32)
             v = bool(
                 lo.size == 0
@@ -242,11 +246,7 @@ class CompressedTable:
         k = f"dense_{side}"
         cols = cache.get(k)
         if cols is None:
-            lo, hi = (
-                (self.key_lo, self.key_hi)
-                if side == "key"
-                else self.value_bounds()
-            )
+            lo, hi = self._side_bounds(side)
             dt = np.int32 if self.int32_safe(side) else np.int64
             cols = (
                 np.ascontiguousarray(lo.T, dtype=dt),
@@ -254,6 +254,36 @@ class CompressedTable:
             )
             cache[k] = cols
         return cols
+
+    def kernel_pack(self, side: str, device) -> tuple["torch.Tensor", bool]:
+        """One join side's kernel operand, resident on ``device``, and
+        whether this call built it.
+
+        The ``[N, 128]`` int32 pack of
+        :func:`repro_torch.kernels.ops.pack_table_side` (lo lanes ``[0, l)``,
+        hi lanes ``[l, 2l)``), packed and uploaded on the first call for a
+        side and device, then cached with the indexes, so reassigning an
+        interval field or :meth:`invalidate_index` drops it.  Every dense
+        kernel launch against the table reuses it instead of packing and
+        uploading the table side again.  Raises unless :meth:`int32_safe`
+        holds for the side; two threads that miss together both build, and
+        one pack stays.
+        """
+        cache = self._cache()
+        k = f"pack_{side}_{device}"
+        pack = cache.get(k)
+        if pack is not None:
+            return pack, False
+        if not self.int32_safe(side):
+            raise ValueError(
+                f"the table's {side} side lies outside the int32 range: it "
+                "cannot be packed for the kernel"
+            )
+        from repro_torch.kernels import ops  # the torch side: the table is numpy
+
+        pack = ops.pack_table_side(*self._side_bounds(side), device)
+        cache[k] = pack
+        return pack, True
 
     def cached_key_index(self) -> IntervalIndex | None:
         """The key index if one is already built/attached, without building."""

@@ -19,6 +19,12 @@ device in the module-level ``h2d_bytes`` (beside the kernel wrappers'
 ``launches`` counters), and open the spans ``ops.pack``, ``ops.upload``,
 ``ops.launch`` and ``ops.extract`` of the active query trace
 (:mod:`repro_torch.obs.trace`).
+
+A table's join side is the same on every query, so
+:func:`segmented_range_join_pairs` can take it already packed on the
+device (``r_packs``: :func:`pack_table_side`'s layout, which
+``CompressedTable.kernel_pack`` keeps resident); only the query side is
+then packed and uploaded per launch.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ __all__ = [
     "run_boundaries",
     "range_join_pairs",
     "segmented_range_join_pairs",
+    "pack_table_side",
     "resolve_device",
     "fits_int32",
 ]
@@ -160,15 +167,19 @@ def _pack_run_table(
     return _pack_run_columns(group_cols, lo, hi, torch.device("cpu")).numpy()
 
 
-def _upload(device: torch.device, *packs: np.ndarray) -> list[torch.Tensor]:
-    """The packs on ``device`` (an ``ops.upload`` span), counted in
-    ``h2d_bytes``."""
+def _to_device(device: torch.device, *packs: np.ndarray) -> list[torch.Tensor]:
+    """The packs on ``device``, counted in ``h2d_bytes``."""
     global h2d_bytes
-    with obs_trace.span("ops.upload", "ops"):
-        out = [torch.from_numpy(p).to(device) for p in packs]
+    out = [torch.from_numpy(p).to(device) for p in packs]
     with _h2d_lock:
         h2d_bytes += sum(p.nbytes for p in packs)
     return out
+
+
+def _upload(device: torch.device, *packs: np.ndarray) -> list[torch.Tensor]:
+    """:func:`_to_device` in an ``ops.upload`` span."""
+    with obs_trace.span("ops.upload", "ops"):
+        return _to_device(device, *packs)
 
 
 def _nonzero_rows(mask: torch.Tensor) -> np.ndarray:
@@ -192,6 +203,63 @@ def _pack_boxes(lo: np.ndarray, hi: np.ndarray, n_attrs: int) -> np.ndarray:
     p[:, :l] = lo.astype(np.int32)
     p[:, n_attrs : n_attrs + l] = hi.astype(np.int32)
     return p
+
+
+def pack_table_side(
+    lo: np.ndarray, hi: np.ndarray, device: "str | torch.device"
+) -> torch.Tensor:
+    """One table join side's kernel operand on ``device``: ``[N, 128]``
+    int32 at the side's own width ``l`` (lo lanes ``[0, l)``, hi lanes
+    ``[l, 2l)``).  Its bytes count in ``h2d_bytes``; it opens no span, so
+    a fill made inside an entry point is charged to that entry point's
+    ``ops.pack``.  A single-segment dense launch takes the pack as it is;
+    a multi-segment one re-lays it on the device (:func:`_assemble_r`)."""
+    return _to_device(resolve_device(device), _pack_boxes(lo, hi, lo.shape[1]))[0]
+
+
+def _assemble_r(
+    packs: "list[torch.Tensor]",
+    segments: "list[tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]",
+    n_attrs: int,
+    seg_rows: "list[int]",
+    seg_lane: "int | None" = None,
+) -> torch.Tensor:
+    """The ``r`` operand of a multi-segment launch, made on the device from
+    each segment's :func:`pack_table_side` pack: hi lanes moved from ``l``
+    to ``n_attrs``; ``seg_rows[s]`` rows for segment ``s``, those past its
+    own rows (block padding) empty boxes ``lo = 1, hi = 0`` on lanes
+    ``[0, n_attrs)``, as :func:`_pad_packed_rows` makes them; with
+    ``seg_lane``, the segment id in lanes ``seg_lane`` and ``n_attrs +
+    seg_lane``, as the dense layout's host packer sets it."""
+    out = torch.zeros((sum(seg_rows), LANES), dtype=torch.int32, device=packs[0].device)
+    off = 0
+    for seg, (p, s, rows) in enumerate(zip(packs, segments, seg_rows)):
+        n, l = s[2].shape
+        out[off : off + n, :l] = p[:, :l]
+        out[off : off + n, n_attrs : n_attrs + l] = p[:, l : 2 * l]
+        if rows > n:
+            out[off + n : off + rows, :n_attrs] = 1
+        if seg_lane is not None:
+            out[off : off + n, seg_lane] = seg
+            out[off : off + n, n_attrs + seg_lane] = seg
+        off += rows
+    return out
+
+
+def _resident_packs(
+    r_packs: list,
+    segments: "list[tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]",
+) -> "list[torch.Tensor]":
+    """Each segment's resident ``r`` pack, from its getter, checked to
+    cover the segment's table rows."""
+    packs = [get() for get in r_packs]
+    for p, s in zip(packs, segments):
+        if p.shape != (s[2].shape[0], LANES):
+            raise ValueError(
+                f"a resident pack of shape {tuple(p.shape)} cannot serve a "
+                f"table side of {s[2].shape[0]} rows"
+            )
+    return packs
 
 
 def range_join_pairs(
@@ -252,7 +320,7 @@ class _TileSchedule(NamedTuple):
     multiples, concatenated, and the diagonal tile schedule over them."""
 
     q: np.ndarray  # [sum padded q rows, LANES] int32
-    r: np.ndarray  # [sum padded r rows, LANES] int32
+    r: "np.ndarray | torch.Tensor"  # [sum padded r rows, LANES] int32
     tile_q: np.ndarray  # [T] int64 q-block index per tile
     tile_r: np.ndarray  # [T] int64 r-block index per tile
     nrb: np.ndarray  # r blocks per segment
@@ -266,20 +334,29 @@ def _blockdiag_schedule(
     n_attrs: int,
     block_q: int,
     block_r: int,
+    r_packs: "list[torch.Tensor] | None" = None,
 ) -> _TileSchedule:
     """Pack each segment on its own (tiles never straddle segments, so no
     segment-id lane is spent) and enumerate the diagonal tile schedule:
-    segment-major, q-block outer / r-block inner."""
+    segment-major, q-block outer / r-block inner.  With ``r_packs`` (the
+    segments' resident table packs) the ``r`` operand is assembled on
+    their device instead of packed on the host."""
     q_parts = [
         _pad_packed_rows(_pack_boxes(s[0], s[1], n_attrs), block_q, n_attrs)
         for s in segments
     ]
-    r_parts = [
-        _pad_packed_rows(_pack_boxes(s[2], s[3], n_attrs), block_r, n_attrs)
-        for s in segments
-    ]
     nqb = np.array([p.shape[0] // block_q for p in q_parts], np.int64)
-    nrb = np.array([p.shape[0] // block_r for p in r_parts], np.int64)
+    nrb = np.array([-(-s[2].shape[0] // block_r) for s in segments], np.int64)
+    if r_packs is None:
+        r = np.concatenate(
+            [
+                _pad_packed_rows(_pack_boxes(s[2], s[3], n_attrs), block_r, n_attrs)
+                for s in segments
+            ],
+            axis=0,
+        )
+    else:
+        r = _assemble_r(r_packs, segments, n_attrs, (nrb * block_r).tolist())
     q_blk_off = np.concatenate([[0], np.cumsum(nqb)])
     r_blk_off = np.concatenate([[0], np.cumsum(nrb)])
     tile_start = np.concatenate([[0], np.cumsum(nqb * nrb)])
@@ -291,7 +368,7 @@ def _blockdiag_schedule(
     ).astype(np.int64)
     return _TileSchedule(
         np.concatenate(q_parts, axis=0),
-        np.concatenate(r_parts, axis=0),
+        r,
         tile_q,
         tile_r,
         nrb,
@@ -307,16 +384,19 @@ def _blockdiag_pairs(
     block_q: int,
     block_r: int,
     device: torch.device,
+    r_packs: "list | None" = None,
 ) -> tuple[list[tuple[np.ndarray, np.ndarray]], int, int]:
     """Per-segment pairs via the tile-scheduled (block-diagonal) kernel.
 
     The schedule comes from :func:`_blockdiag_schedule`, and pair
     extraction runs on the device over the ``[T, block_q, block_r]`` tile
-    stack — only the pairs come back to the host.  Returns the per-segment
-    pair lists plus (padded rows, tiles visited).
+    stack — only the pairs come back to the host.  ``r_packs`` are as for
+    :func:`segmented_range_join_pairs`.  Returns the per-segment pair lists
+    plus (padded rows, tiles visited).
     """
     with obs_trace.span("ops.pack", "ops"):
-        sched = _blockdiag_schedule(segments, n_attrs, block_q, block_r)
+        packs = None if r_packs is None else _resident_packs(r_packs, segments)
+        sched = _blockdiag_schedule(segments, n_attrs, block_q, block_r, packs)
     tile_q, tile_r = sched.tile_q, sched.tile_r
     nrb, q_blk_off, r_blk_off = sched.nrb, sched.q_blk_off, sched.r_blk_off
     tile_start = sched.tile_start
@@ -324,7 +404,10 @@ def _blockdiag_pairs(
     empty = (np.zeros(0, np.int64), np.zeros(0, np.int64))
     if n_tiles == 0:
         return [empty for _ in segments], 0, 0
-    q_t, r_t = _upload(device, sched.q, sched.r)
+    if packs is None:
+        q_t, r_t = _upload(device, sched.q, sched.r)
+    else:
+        (q_t,), r_t = _upload(device, sched.q), sched.r
     with obs_trace.span("ops.launch", "ops"):
         masks = range_join_tile_masks(
             q_t,
@@ -374,6 +457,7 @@ def segmented_range_join_pairs(
     block_r: int = 256,
     device: "str | torch.device" = "cuda",
     layout: str = "auto",
+    r_packs: "list | None" = None,
 ) -> tuple[list[tuple[np.ndarray, np.ndarray]], dict]:
     """Many independent range joins in **one** kernel launch.
 
@@ -399,6 +483,15 @@ def segmented_range_join_pairs(
     the executed schedule, ``tiles_skipped`` the cross-product tiles the
     block-diagonal schedule avoided.  ``device`` is as for
     :func:`range_join_pairs`.
+
+    ``r_packs``, one zero-argument getter per segment, hands over each
+    segment's table side already on ``device`` (:func:`pack_table_side`'s
+    ``[N, 128]`` pack of ``r_lo``/``r_hi``, whose int32 range its owner
+    checked).  The getters are called inside the ``ops.pack`` span; then
+    only the query side is checked, packed and uploaded.  A single-segment
+    dense launch takes the pack as its ``r`` operand as it is; with more
+    segments the operand is assembled on the device.  The pair lists are
+    those of the same call without ``r_packs``.
     """
     dev = resolve_device(device)
     geometry = (block_q, block_r)
@@ -409,10 +502,15 @@ def segmented_range_join_pairs(
         }
     if layout not in ("auto", "dense", "blockdiag"):
         raise ValueError(f"unknown launch layout {layout!r}")
+    if r_packs is not None and len(r_packs) != len(segments):
+        raise ValueError(f"{len(r_packs)} resident packs for {len(segments)} segments")
     with obs_trace.span("ops.pack", "ops"):
         l_max = max(s[0].shape[1] for s in segments)
         for q_lo, q_hi, r_lo, r_hi in segments:
-            _require_int32(q_lo, q_hi, r_lo, r_hi)
+            if r_packs is None:
+                _require_int32(q_lo, q_hi, r_lo, r_hi)
+            else:
+                _require_int32(q_lo, q_hi)
         nq_tot = sum(s[0].shape[0] for s in segments)
         nr_tot = sum(s[2].shape[0] for s in segments)
         rows = int(nq_tot + nr_tot)
@@ -434,7 +532,7 @@ def segmented_range_join_pairs(
     if layout == "blockdiag":
         check_lane_capacity(l_max)  # no segment lane: tiles never cross segments
         out, rows_padded, visited = _blockdiag_pairs(
-            segments, l_max, block_q, block_r, dev
+            segments, l_max, block_q, block_r, dev, r_packs
         )
         return out, {
             "rows": rows,
@@ -463,10 +561,21 @@ def segmented_range_join_pairs(
 
     with obs_trace.span("ops.pack", "ops"):
         qp = pack_side([(s[0], s[1]) for s in segments])
-        rp = pack_side([(s[2], s[3]) for s in segments])
         q_off = np.cumsum([0] + [s[0].shape[0] for s in segments])
         r_off = np.cumsum([0] + [s[2].shape[0] for s in segments])
-    q_t, r_t = _upload(dev, qp, rp)
+        if r_packs is None:
+            rp = pack_side([(s[2], s[3]) for s in segments])
+        else:
+            packs = _resident_packs(r_packs, segments)
+            # one segment: n_attrs is the table's own width, so its pack is
+            # the operand as it is
+            r_t = packs[0] if not segmented else _assemble_r(
+                packs, segments, n_attrs, [s[2].shape[0] for s in segments], l_max
+            )
+    if r_packs is None:
+        q_t, r_t = _upload(dev, qp, rp)
+    else:
+        (q_t,) = _upload(dev, qp)
     with obs_trace.span("ops.launch", "ops"):
         mask = range_join_mask(q_t, r_t, n_attrs=n_attrs)
     with obs_trace.span("ops.extract", "ops"):
@@ -486,7 +595,7 @@ def segmented_range_join_pairs(
                 )
             )
     rows_padded = int(
-        -(-qp.shape[0] // block_q) * block_q + -(-rp.shape[0] // block_r) * block_r
+        -(-qp.shape[0] // block_q) * block_q + -(-nr_tot // block_r) * block_r
     )
     return out, {
         "rows": rows,

@@ -31,13 +31,15 @@ The spans below ``execute``, with their kind and what each covers:
 - ``query.index`` (query): the interval index's probe and candidate
   estimate in the route decision, and its ``candidate_pairs``;
 - ``query.route`` (query): which of a frontier's dense joins the kernel
-  can take (lane capacity, the int32 range of both sides);
+  can take (lane capacity, the query side's int32 range and the table
+  side's cached verdict);
 - ``kernel_launch`` (kernel): the packed dispatch of a frontier's dense
   joins to ``ops.segmented_range_join_pairs``; ``twin`` (kernel): the
   numpy twin's evaluation of the segments the kernel does not take;
 - ``ops.pack``, ``ops.upload``, ``ops.launch``, ``ops.extract`` (ops):
   in both dense entry points of ``kernels/ops.py``, the host packing and
-  int32 checks, the host-to-device copies of the packs, the kernel
+  int32 checks (with a table side's one-time resident pack, its fill and
+  upload included), the host-to-device copies of the packs, the kernel
   wrapper's call, and ``nonzero`` with the device-to-host copy and the
   host split of the pairs;
 - ``query.finalize`` (query): de-relativized or inverted key boxes,

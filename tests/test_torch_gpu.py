@@ -245,6 +245,39 @@ def test_segmented_pairs_on_card_equal_cpu(cuda_device, layout):
         np.testing.assert_array_equal(gr, wr)
 
 
+@pytest.mark.parametrize("layout,widths", [
+    ("dense", (2,)), ("dense", (1, 3, 2)), ("blockdiag", (2,)), ("blockdiag", (1, 3, 2)),
+])
+def test_resident_packs_on_card_equal_cpu_and_stay_unchanged(cuda_device, layout, widths):
+    """Segments whose table side is a resident pack on the card give the
+    CPU's host-packed pair lists, and 50 launches leave the packs' bytes as
+    they were (the kernels never write their operands)."""
+    rng = np.random.default_rng(SEED)
+    segs, tables = [], []
+    for l in widths:
+        nq, nr = int(rng.integers(50, 300)), int(rng.integers(200, 700))
+        q_lo, r_lo = rng.integers(0, 60, (nq, l)), rng.integers(0, 60, (nr, l))
+        r_hi = r_lo + rng.integers(0, 6, (nr, l))
+        tables.append(core.CompressedTable(
+            (70,) * l, (70,) * l, r_lo, r_hi, r_lo, r_hi, np.full((nr, l), -1)))
+        segs.append((q_lo, q_lo + rng.integers(0, 6, (nq, l)), r_lo, r_hi))
+    want, winfo = ops.segmented_range_join_pairs(segs, 64, 128, device="cpu", layout=layout)
+    getters = [lambda t=t: t.kernel_pack("key", cuda_device)[0] for t in tables]
+    packs = [get() for get in getters]
+    assert all(p.device.type == "cuda" for p in packs)
+    before = [p.clone() for p in packs]
+    for _ in range(50):
+        got, ginfo = ops.segmented_range_join_pairs(segs, 64, 128, device=cuda_device,
+                                                    layout=layout, r_packs=getters)
+        assert ginfo == winfo
+        for (gq, gr), (wq, wr) in zip(got, want):
+            np.testing.assert_array_equal(gq, wq)
+            np.testing.assert_array_equal(gr, wr)
+    torch.cuda.synchronize()
+    assert all(t.kernel_pack("key", cuda_device)[0] is p for t, p in zip(tables, packs))
+    assert all(torch.equal(p, b) for p, b in zip(packs, before))
+
+
 @pytest.mark.parametrize("rels", [
     [C.slice_lineage((64, 64), (0, 0), (64, 64), (2, 2)), C.identity_lineage((32, 32)),
      C.transpose_lineage((32, 32), (1, 0)), C.reduce_lineage((32, 32), 1)],

@@ -124,6 +124,11 @@ def test_executor_matches_reference(engine, merge, seed, n_tables):
     routes = {k: tstats.pop(k) for k in ("joins_index", "joins_dense_kernel",
                                          "joins_dense_twin") if k in tstats}
     assert routes == {f"joins_dense_{engine}": jstats["joins_packed"]}
+    # and each kernel segment's table side by whether it was resident: here
+    # every (table, side) is met once, so every pack is built
+    packs = {k: tstats.pop(k) for k in ("table_packs_built", "table_packs_resident")
+             if k in tstats}
+    assert packs == ({"table_packs_built": jstats["joins_packed"]} if engine == "kernel" else {})
     assert tstats == jstats
     assert tstats["batch_tiles_visited"] > 0
     assert tex.measured_waste == jex.measured_waste
