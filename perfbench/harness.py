@@ -5,8 +5,10 @@ what was recorded to the cell's metrics.
 Everything is found by name: the cell in ``workloads/<cell>.json``, its
 configuration in ``configs/<config>.json``, the store kind in
 ``stores/<kind>.py``, the traffic kind in ``traffic/<kind>.py`` and each
-metric's reader in ``metrics/<metric>.py``; ``BENCHMARK.json`` at the
-checkout's root says which metrics a cell reports.
+metric's reader, with its own test case (``CASE``), in
+``metrics/<metric>.py``; ``BENCHMARK.json`` at the checkout's root says
+which metrics a cell reports.  A reader takes the :class:`Run` whole: in
+the traced run that holds every program span and counter by name.
 """
 
 from __future__ import annotations
@@ -109,12 +111,45 @@ class Run:
         self.launches: list = []
         self.timeline: dict = {}
         self.bound_s: dict[str, float] = {}  # kernel -> summed least seconds
+        # traced run only: every program span by name, summed over the
+        # window's queries (seconds; how many opened, events included), and
+        # the seconds of each stage of the store's build
+        self.span_s: dict[str, float] = {}
+        self.span_n: dict[str, int] = {}
+        self.stages_s: dict[str, float] = {}
+
+    def span_ms_per_query(self, name: str) -> float | None:
+        """Milliseconds a query spent in the program's span ``name``, over
+        the window's queries; None where no query opened it."""
+        if not self.queries or not self.span_n.get(name):
+            return None
+        return self.span_s.get(name, 0.0) / self.queries * 1e3
 
 
-def counters(log, torch_kernels) -> dict[str, int]:
+def record_spans(run: Run, trace) -> None:
+    """Add every span of one query's trace but its root to ``run``'s sums."""
+    for sp in trace.spans():
+        if sp is trace.root:
+            continue
+        run.span_n[sp.name] = run.span_n.get(sp.name, 0) + 1
+        if sp.duration is not None:
+            run.span_s[sp.name] = run.span_s.get(sp.name, 0.0) + sp.duration
+
+
+def build_stages(log) -> dict[str, float]:
+    """Seconds of each stage of the store's build so far, from its metrics
+    registry (``ingest_seconds{stage=...}``)."""
+    return {h["labels"]["stage"]: h["sum"] for h in log.metrics_snapshot()["histograms"]
+            if h["name"] == "ingest_seconds" and "stage" in h["labels"]}
+
+
+def counters(log, torch_kernels, ops) -> dict[str, int]:
+    """Every numeric ``io_stats`` counter, the kernel wrappers' launch
+    counters and the bytes ``kernels/ops.py`` handed to the device."""
     snap = {k: int(v) for k, v in dict(log.io_stats).items() if isinstance(v, (int, float))}
     for name in ("range_join_mask", "range_join_tile_masks"):
         snap[f"launches.{name}"] = int(getattr(torch_kernels, name).launches)
+    snap["ops.h2d_bytes"] = int(ops.h2d_bytes)
     return snap
 
 
@@ -128,6 +163,8 @@ class QueryClient:
         self.cfg, self.seed, self.rec, self.run = cfg, seed, rec, run
         self.store_kind = _module("stores", cfg["kind"])
         self.log, self.info = self.store_kind.build(core, cfg, seed, root, device)
+        if rec.enabled:
+            run.stages_s = build_stages(self.log)
         self.answers: list = []  # (request, answer) of the window
 
     def do(self, req, keep: bool) -> None:
@@ -138,6 +175,7 @@ class QueryClient:
                 self.run.plan_self_s.append(
                     sp.duration - sum(c.duration or 0.0 for c in sp.children))
             self.run.execute_s += [sp.duration for sp in tr.spans("execute")]
+            record_spans(self.run, tr)
         else:
             res = self.log.prov_query(*args, req["cells"], merge=req["merge"])
         if keep:
@@ -242,7 +280,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str, t_s
             torch.cuda.synchronize()
         gen = traffic.requests(params, client.info, np.random.default_rng([seed, 2]))
         rec.install(ops, client.log.planner)
-        c0 = counters(client.log, range_join)
+        c0 = counters(client.log, range_join, ops)
         run.setup_s = time.perf_counter() - t_start
         with rec.profile() as prof:
             with rec.span("window"):
@@ -260,7 +298,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str, t_s
                 run.window_s = now - t0
         rec.uninstall()
         run.queries = len(run.latencies)
-        c1 = counters(client.log, range_join)
+        c1 = counters(client.log, range_join, ops)
         run.counters = {k: c1[k] - c0.get(k, 0) for k in c1}
         peak = int(torch.cuda.max_memory_allocated()) if device == "cuda" else 0
         run.launches = rec.launches

@@ -4,6 +4,9 @@ card (1 - the union of the profiler's device intervals over the window)."""
 NAME, UNIT, BETTER, SOURCE = "device.idle_share.query", "%", "lower", "device_trace"
 LAYER, MOVES = "device", "queries_per_s"
 
+# what it reads on the shared fake run of test_perfbench_metrics.py
+CASE = {"reads": 65.0}
+
 
 def read(run):
     tl = run.timeline

@@ -7,6 +7,9 @@ them, over the window's queries."""
 NAME, UNIT, BETTER, SOURCE = "ops.host_ms_per_query", "ms", "lower", "host_clock"
 LAYER, MOVES = "kernels/ops.py", "query_p95_ms"
 
+# what it reads on the shared fake run of test_perfbench_metrics.py
+CASE = {"reads": (30e-6 - 10e-6) / 20 * 1e3}
+
 
 def read(run):
     tl = run.timeline

@@ -5,6 +5,9 @@ over the window's queries."""
 NAME, UNIT, BETTER, SOURCE = "query.launches_per_query", "count", "lower", "program_counter"
 LAYER, MOVES = "core/query.py", "query_p95_ms"
 
+# what it reads on the shared fake run of test_perfbench_metrics.py
+CASE = {"reads": 2.0}
+
 
 def read(run):
     if not run.queries:

@@ -7,6 +7,9 @@ NAME, UNIT, BETTER, SOURCE = "range_join_mask_roofline", "%", "higher", "device_
 LAYER, MOVES = "kernels/csrc/range_join.cu", "query_p95_ms"
 KERNEL, DEVICE_NAME = "range_join_mask", "range_join_mask_kernel"
 
+# what it reads on the shared fake run of test_perfbench_metrics.py
+CASE = {"reads": 50.0}
+
 
 def read(run):
     t = run.timeline.get("device_s", {}).get(DEVICE_NAME) if run.timeline else None

@@ -58,8 +58,9 @@ def test_benchmark_json_names_existing_files():
 
 
 def test_new_cell_and_metric_are_found_as_files(tmp_path):
-    """A later change adds a cell and a metric as new files; the harness
-    lists them with no edit to a file that is there."""
+    """A later change adds a cell and metrics as new files; the harness
+    lists them, and a reader of a span it has never named passes its own
+    case, with no edit to a file that is there."""
     shutil.copytree(ROOT / "perfbench", tmp_path / "perfbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
@@ -70,12 +71,29 @@ def test_new_cell_and_metric_are_found_as_files(tmp_path):
     (tmp_path / "perfbench/metrics/query.answer_boxes.py").write_text(
         'NAME, UNIT, BETTER, SOURCE = "query.answer_boxes", "count", "lower", "program_counter"\n'
         'LAYER, MOVES = "core/query.py", "query_p95_ms"\n\n\ndef read(run):\n    return None\n')
+    (tmp_path / "perfbench/metrics/shard.exchange_ms_per_query.py").write_text(
+        'NAME, UNIT, BETTER, SOURCE = "shard.exchange_ms_per_query", "ms", "lower", '
+        '"program_span"\n'
+        'LAYER, MOVES = "core/shard.py", "query_p95_ms"\n'
+        'CASE = {"sets": {"span_s": {"shard.exchange": 0.5}, "span_n": {"shard.exchange": 40}},\n'
+        '        "reads": 0.5 / 20 * 1e3}\n\n\n'
+        'def read(run):\n    return run.span_ms_per_query("shard.exchange")\n')
     out = subprocess.run([sys.executable, "perfbench/run.py", "--list"], cwd=tmp_path,
                          capture_output=True, text=True, env=_env(), timeout=120)
     assert out.returncode == 0, out.stderr
     found = json.loads(out.stdout.strip().splitlines()[-1])
     assert "fig89.query_mid" in found["workloads"] and "query.answer_boxes" in found["metrics"]
+    assert "shard.exchange_ms_per_query" in found["metrics"]
     assert set(harness.listing()["workloads"]) < set(found["workloads"])
+    env = _env()
+    env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), str(ROOT / "src")])
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "-v", "-p", "no:cacheprovider", "-p", "no:randomly",
+         "perfbench/test_perfbench_metrics.py", "-k", "exchange"],
+        cwd=tmp_path, capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    for test in ("test_reader_on_a_fake_run", "test_reader_finds_nothing_in_an_empty_run"):
+        assert f"{test}[shard.exchange_ms_per_query] PASSED" in out.stdout, out.stdout[-3000:]
 
 
 def test_harness_loads_neither_jax_nor_the_jax_package():

@@ -75,3 +75,17 @@ def test_tiny_configs_keep_the_workflows():
     assert [w["name"] for w in cfg["workflows"]] == [w["name"] for w in tiny["workflows"]]
     assert [[o[0] for o in w["ops"]] for w in cfg["workflows"]] == \
         [[o[0] for o in w["ops"]] for w in tiny["workflows"]]
+
+
+def test_tiny_config_shrinks_workflows_of_any_store_kind():
+    """A later store kind over the same workflows (a sharded one) takes the
+    test sizes with no edit to ``testing.py``."""
+    from perfbench.testing import shrink
+
+    cfg = harness.load_config("fig89_store")
+    cfg["kind"] = "sharded_workflows"
+    small = shrink(cfg)
+    assert small["kind"] == "sharded_workflows"
+    assert small["workflows"] == tiny_config("fig89_store")["workflows"]
+    assert small["workflows"] != cfg["workflows"]
+    assert all(np.prod(w["input"]) <= 24 * 24 for w in small["workflows"])

@@ -8,7 +8,8 @@
   each becomes an ``ops`` span (synchronised at exit) that keeps the join
   operands it handed the kernel, for the roofline.
 * The planner's ``plan``/``execute`` calls, as labels on the timeline.
-* ``torch.profiler`` over the window; :func:`timeline` reduces its trace.
+* ``torch.profiler`` over the window; :func:`timeline` reduces its trace,
+  with the program's own ``dslog::`` ranges beside the harness's spans.
 
 With tracing off every hook is a no-op and nothing is patched.
 """
@@ -123,21 +124,59 @@ def kernel_base(name: str) -> str:
     return re.split(r"[<(]", n, maxsplit=1)[0].strip() or name
 
 
+def _innermost(host: list[tuple[float, float, str]], w0: float, w1: float) -> list:
+    """The window ``[w0, w1)`` cut into pieces ``(start, end, name)``, each
+    under the innermost host span open over it (``harness`` where none is).
+    ``host`` is sorted by start, the longer span first where two start
+    together; spans of one thread nest."""
+    pieces: list[tuple[float, float, str]] = []
+    stack: list[tuple[float, str]] = []  # (end, name) of the open spans, innermost last
+    t = w0
+
+    def upto(b: float, name: str) -> None:
+        nonlocal t
+        if b > t:
+            if min(b, w1) > max(t, w0):
+                pieces.append((max(t, w0), min(b, w1), name))
+            t = b
+
+    for s, e, name in host:
+        while stack and stack[-1][0] <= s:
+            upto(*stack.pop())
+        upto(s, stack[-1][1] if stack else "harness")
+        stack.append((e, name))
+    while stack:
+        upto(*stack.pop())
+    upto(w1, "harness")
+    return pieces
+
+
 def timeline(events: list[dict]) -> dict:
     """Reduce a chrome trace's events (µs) to the device's busy time, the
-    kernels' times, the idle gaps by the innermost ``pb::`` span the host
-    was in (``request`` where a request is outside the planner's and the
-    ops' spans, ``harness`` between requests), and the ``ops`` spans' host
-    time net of the kernels inside them.
+    kernels' times, the idle time by the innermost host span the window's
+    thread was in at each instant, and the ``ops`` spans' host time net of
+    the kernels inside them.
+
+    Host spans are the harness's ``pb::<name>`` ranges and the program's
+    ``dslog::<name>`` ranges (``cpu_op`` events of ``prov_query(trace=True)``'s
+    spans), each labelled by its name without the prefix: idle time reads
+    ``query.canonical`` or ``ops.pack`` where the program opened such a
+    span, ``execute`` or ``ops`` where only the harness's span was open,
+    ``request`` inside a request outside both, ``harness`` between
+    requests.  ``ops_s`` and ``ops_kernel_s`` come from the ``pb::ops``
+    spans alone.
 
     The window is the ``pb::window`` range; device time is the union of
     kernel, copy and set intervals inside it."""
-    host_ev = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-               and str(e.get("name", "")).startswith("pb::")]
-    win = [e for e in host_ev if e["name"] == "pb::window"]
+    win = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+           and e.get("name") == "pb::window"]
     if not win:
         return {}
     w0, w1 = win[0]["ts"], win[0]["ts"] + win[0]["dur"]
+    tid = win[0].get("tid")
+    host_ev = [e for e in events if e.get("ph") == "X" and e.get("tid") == tid and (
+        (e.get("cat") == "user_annotation" and str(e.get("name", "")).startswith("pb::"))
+        or (e.get("cat") == "cpu_op" and str(e.get("name", "")).startswith("dslog::")))]
     dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS
            and w0 <= e["ts"] < w1]
     kernels = [e for e in dev if e["cat"] == "kernel"]
@@ -148,29 +187,24 @@ def timeline(events: list[dict]) -> dict:
         k = kernel_base(e["name"]) if e["cat"] == "kernel" else e["name"]
         by_name[k] = by_name.get(k, 0.0) + e["dur"] * 1e-6
         count[k] = count.get(k, 0) + 1
-    host = sorted(((e["ts"], e["ts"] + e["dur"], e["name"][4:]) for e in host_ev
+    host = sorted(((e["ts"], e["ts"] + e["dur"], e["name"].split("::", 1)[1]) for e in host_ev
                    if e["name"] != "pb::window"), key=lambda t: (t[0], -t[1]))
-    starts = np.array([h[0] for h in host]) if host else np.zeros(0)
-
-    def label(t: float) -> str:
-        # the innermost span holding t: the latest-starting one that covers
-        # it (spans nest a few deep, so a short look back finds it)
-        best = "harness"
-        last = int(np.searchsorted(starts, t, side="right")) - 1
-        for i in range(last, max(-1, last - 64), -1):
-            s, e, name = host[i]
-            if e >= t:
-                best = name
-                break
-        return best
-
+    pieces = _innermost(host, w0, w1)
     gaps: dict[str, float] = {}
     edges = [w0] + [x for iv in busy for x in iv] + [w1]
+    i = 0
     for a, b in zip(edges[0::2], edges[1::2]):
-        if b > a:
-            lab = label((a + b) / 2)
-            gaps[lab] = gaps.get(lab, 0.0) + (b - a) * 1e-6
-    ops_spans = [(s, e) for s, e, n in host if n == "ops"]
+        # the pieces tile the window in order, and so do the idle intervals
+        while i < len(pieces) and pieces[i][1] <= a:
+            i += 1
+        j = i
+        while j < len(pieces) and pieces[j][0] < b:
+            lo, hi = max(a, pieces[j][0]), min(b, pieces[j][1])
+            if hi > lo:
+                name = pieces[j][2]
+                gaps[name] = gaps.get(name, 0.0) + (hi - lo) * 1e-6
+            j += 1
+    ops_spans = [(e["ts"], e["ts"] + e["dur"]) for e in host_ev if e["name"] == "pb::ops"]
     ops_kernel = 0.0
     if ops_spans:
         k_starts = np.array([e["ts"] for e in kernels])
