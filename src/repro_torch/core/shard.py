@@ -31,7 +31,9 @@ keeping the single-store surface:
   :func:`~repro_torch.core.query.merge_boxes` so only merged cell boxes ship
   (predicate-pushdown style: prune before crossing), and the cost model
   adds a per-box exchange term (``_EXCHANGE_WEIGHT``) on top of the
-  single-shard per-hop costs.
+  single-shard per-hop costs.  In a traced query each crossing's work (the
+  shipped frontier's ``merge_boxes`` and the metering) is a
+  ``shard.exchange`` span holding the ``exchange`` event.
 
 * **persistence layer** — the v2 manifest splits into a **root manifest**
   (``catalog.json`` with a ``"sharded"`` marker: policy, array→shard map,
@@ -458,12 +460,13 @@ class ShardedQueryPlanner(QueryPlanner):
         ex = plan.exchange_for(step.u, step.v, "input")
         if ex is None:
             return qs
-        shipped = [merge_boxes(q) for q in qs]  # prune before crossing
-        n = sum(q.n_rows for q in shipped)
-        with self.log._stats_lock:  # parallel sub-plans meter concurrently
-            ex.shipped_boxes += n
-        self.log._bump("boxes_exchanged", n)
-        self._meter_exchange(ex, n)
+        with obs_trace.span("shard.exchange", "shard"):
+            shipped = [merge_boxes(q) for q in qs]  # prune before crossing
+            n = sum(q.n_rows for q in shipped)
+            with self.log._stats_lock:  # parallel sub-plans meter concurrently
+                ex.shipped_boxes += n
+            self.log._bump("boxes_exchanged", n)
+            self._meter_exchange(ex, n)
         return shipped
 
     def _record_step_output(self, plan, step, res_list):
@@ -472,11 +475,12 @@ class ShardedQueryPlanner(QueryPlanner):
         ex = plan.exchange_for(step.u, step.v, "output")
         if ex is None:
             return
-        n = sum(r.n_rows for r in res_list)
-        with self.log._stats_lock:
-            ex.shipped_boxes += n
-        self.log._bump("boxes_exchanged", n)
-        self._meter_exchange(ex, n)
+        with obs_trace.span("shard.exchange", "shard"):
+            n = sum(r.n_rows for r in res_list)
+            with self.log._stats_lock:
+                ex.shipped_boxes += n
+            self.log._bump("boxes_exchanged", n)
+            self._meter_exchange(ex, n)
 
     def _meter_exchange(self, ex: ExchangeStep, n: int) -> None:
         """Per-shard-pair exchange volume + trace event (outside locks)."""
