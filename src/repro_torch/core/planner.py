@@ -759,11 +759,17 @@ class QueryPlanner:
             # target answers are re-cut into the canonical decomposition —
             # equal cell sets become equal bytes, whatever plan produced
             # them.
-            with obs_trace.span("query.canonical", "query"):
+            with obs_trace.span("query.canonical", "query") as sp:
+                sp.attrs["boxes_in"] = sum(
+                    q.lo.shape[0] for boxes in out.values() for q in boxes
+                )
                 out = {
                     name: [canonical_boxes(q) for q in boxes]
                     for name, boxes in out.items()
                 }
+                sp.attrs["boxes_out"] = sum(
+                    q.lo.shape[0] for boxes in out.values() for q in boxes
+                )
         return out
 
     # ------------------------------------------------------------------ #

@@ -71,7 +71,7 @@ from repro_torch.kernels.autotune import (
 from repro_torch.obs import trace as obs_trace
 
 from .index import IntervalIndex, ragged_ranges
-from .intervals import coalesce_1d, lexsort_rows
+from .intervals import coalesce_1d, lexsort_rows, segment_all
 from .provrc import _group_ids
 from .table import CompressedTable
 
@@ -1146,71 +1146,93 @@ def canonical_boxes(q: QueryBox) -> QueryBox:
     the cross-section actually changes, which is intrinsic to the cell
     set, so every decomposition of the same cells maps to identical
     bytes.  Used as the final normal form on merged query answers.
+
+    The cut is one segmented sweep per axis (:func:`_canonical_cut`): every
+    slab of every level is cut at once, so the host's cost grows with the
+    rows the slabs hold, not with a Python step per slab or per box.
     """
     if q.lo.shape[0] <= 1:
         return q
     nd = len(q.shape)
     if nd == 0:
         return QueryBox(q.shape, q.lo[:1], q.hi[:1])
-
-    def merge_1d(lo: np.ndarray, hi: np.ndarray):
-        order = np.argsort(lo[:, 0], kind="stable")
-        l, h = lo[order, 0], hi[order, 0]
-        out_l, out_h = [], []
-        cl, ch = l[0], h[0]
-        for i in range(1, l.size):
-            if l[i] <= ch + 1:
-                ch = max(ch, h[i])
-            else:
-                out_l.append(cl)
-                out_h.append(ch)
-                cl, ch = l[i], h[i]
-        out_l.append(cl)
-        out_h.append(ch)
-        return (
-            np.asarray(out_l, np.int64)[:, None],
-            np.asarray(out_h, np.int64)[:, None],
-        )
-
-    def rec(lo: np.ndarray, hi: np.ndarray):
-        if lo.shape[1] == 1:
-            return merge_1d(lo, hi)
-        cuts = np.unique(np.concatenate([lo[:, 0], hi[:, 0] + 1]))
-        memo: dict[tuple, tuple] = {}
-        slabs = []  # (start, end_exclusive, cross-section key, sub lo/hi)
-        for a, b in zip(cuts[:-1], cuts[1:]):
-            active = np.nonzero((lo[:, 0] <= a) & (hi[:, 0] >= a))[0]
-            if active.size == 0:
-                slabs.append((a, b, None, None, None))
-                continue
-            mk = tuple(active.tolist())
-            if mk not in memo:
-                sl, sh = rec(lo[active, 1:], hi[active, 1:])
-                memo[mk] = (sl.tobytes() + b"|" + sh.tobytes(), sl, sh)
-            slabs.append((a, b) + memo[mk])
-        out_lo, out_hi = [], []
-        i = 0
-        while i < len(slabs):
-            a, b, key, sl, sh = slabs[i]
-            if key is None:  # gap: no cells in this slab
-                i += 1
-                continue
-            j = i + 1
-            while j < len(slabs) and slabs[j][2] == key:
-                b = slabs[j][1]
-                j += 1
-            m = sl.shape[0]
-            out_lo.append(
-                np.concatenate([np.full((m, 1), a, np.int64), sl], axis=1)
-            )
-            out_hi.append(
-                np.concatenate([np.full((m, 1), b - 1, np.int64), sh], axis=1)
-            )
-            i = j
-        return np.concatenate(out_lo), np.concatenate(out_hi)
-
-    lo, hi = rec(np.asarray(q.lo, np.int64), np.asarray(q.hi, np.int64))
+    lo = np.asarray(q.lo, np.int64)
+    hi = np.asarray(q.hi, np.int64)
+    lo, hi, _ = _canonical_cut(lo, hi, np.zeros(lo.shape[0], np.int64))
     return QueryBox(q.shape, lo, hi)
+
+
+def _canonical_cut(
+    lo: np.ndarray, hi: np.ndarray, group: np.ndarray
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Canonical decomposition of every group of boxes at once.
+
+    ``lo``/``hi`` are int64 ``(n, d)`` boxes and ``group`` their int64 group
+    ids, in any order.  Returns the groups' canonical boxes and their group
+    ids, sorted by group; within a group, slabs of axis 0 ascend and each
+    slab's rows follow its cross-section's own canonical order.
+    """
+    n = lo.shape[0]
+    if n == 1:
+        return lo, hi, group
+    # one int64 key per (group, axis-0 value): group * span + (value - vmin)
+    vmin = int(lo[:, 0].min())
+    span = int(hi[:, 0].max()) - vmin + 2
+    if (int(group.max()) + 1) * span >= 1 << 62:
+        # keys would overflow: cut on axis 0's ranks among its lo and
+        # hi + 1, which keep every overlap, adjacency and gap
+        values, rank = np.unique(np.concatenate([lo[:, 0], hi[:, 0] + 1]), return_inverse=True)
+        lo, hi = lo.copy(), hi.copy()
+        lo[:, 0], hi[:, 0] = rank[:n], rank[n:] - 1
+        out_lo, out_hi, out_group = _canonical_cut(lo, hi, group)
+        out_lo[:, 0], out_hi[:, 0] = values[out_lo[:, 0]], values[out_hi[:, 0] + 1] - 1
+        return out_lo, out_hi, out_group
+    if lo.shape[1] == 1:
+        # the last axis: each group's union of intervals, sorted by lo
+        l, h = lo[:, 0] - vmin, hi[:, 0] - vmin
+        order = np.argsort(group * span + l)
+        g = group[order]
+        starts, out_lo, out_hi = coalesce_1d(g, l[order], h[order])
+        return out_lo[:, None] + vmin, out_hi[:, None] + vmin, g[starts]
+
+    # A group's cuts are its boxes' lo and hi + 1 on axis 0; sorted keys make
+    # slab i = [cut i, cut i + 1) within a group.
+    key = group * span
+    start, end = key + (lo[:, 0] - vmin), key + (hi[:, 0] + 1 - vmin)
+    cuts, at = np.unique(np.concatenate([start, end]), return_inverse=True)
+    # each box becomes one row per slab it covers; the slab is its group
+    owner, slab = ragged_ranges(at[:n], at[n:])
+    sub_lo, sub_hi, sub_slab = _canonical_cut(lo[owner, 1:], hi[owner, 1:], slab)
+
+    # the present slabs, each a run of rows in the sorted sub-result
+    m = sub_slab.size
+    first = np.ones(m, bool)
+    first[1:] = sub_slab[1:] != sub_slab[:-1]
+    row_start = np.flatnonzero(first)
+    present = sub_slab[row_start]
+    rows = np.diff(row_start, append=m)
+    # slab k + 1 joins slab k when no gap slab lies between them (then both
+    # lie in one group) and their cross-sections are equal, row for row
+    join = (present[1:] == present[:-1] + 1) & (rows[1:] == rows[:-1])
+    pair = np.flatnonzero(join)
+    if pair.size:
+        which, r = ragged_ranges(row_start[pair], row_start[pair + 1])
+        s = r + rows[pair][which]
+        same = (sub_lo[r] == sub_lo[s]).all(axis=1) & (sub_hi[r] == sub_hi[s]).all(axis=1)
+        join[pair] = segment_all(same, np.cumsum(rows[pair]) - rows[pair])
+
+    # each run of joined slabs keeps its first slab's rows behind
+    # [first slab's cut, last slab's end - 1] on axis 0
+    run_first = np.ones(present.size, bool)
+    run_first[1:] = ~join
+    head = present[run_first]
+    tail = np.append(present[:-1][~join], present[-1])
+    keep = np.repeat(run_first, rows)
+    run = np.repeat(np.arange(head.size), rows[run_first])
+    cut_value = cuts % span + vmin
+    out_lo = np.concatenate([cut_value[head][run][:, None], sub_lo[keep]], axis=1)
+    out_hi = np.concatenate([cut_value[tail + 1][run][:, None] - 1, sub_hi[keep]], axis=1)
+    return out_lo, out_hi, (cuts[head] // span)[run]
 
 
 # --------------------------------------------------------------------------- #

@@ -46,7 +46,8 @@ The spans below ``execute``, with their kind and what each covers:
   scattered to their owners;
 - ``planner.assemble`` (planner): a node's frontier, with the hop
   feedback and a ``merge_boxes`` per query;
-- ``query.canonical`` (query): the targets' canonical cut.
+- ``query.canonical`` (query): the targets' canonical cut, with the
+  boxes it took and gave (``boxes_in``, ``boxes_out``).
 
 While the autograd profiler records (``torch.profiler.profile``), each
 span but the root is also a profiler range named ``dslog::<span name>``

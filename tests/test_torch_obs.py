@@ -115,6 +115,19 @@ def test_answers_equal_with_tracing_on_and_off():
         assert on.lo.tobytes() == off.lo.tobytes() and on.hi.tobytes() == off.hi.tobytes()
 
 
+def test_canonical_span_records_the_boxes_it_cut():
+    log, names = _store()
+    rows = []
+    for form in ((names, CELLS), (names[::-1], CELLS[:, :1])):
+        res, tr = log.prov_query(*form, trace=True)
+        (sp,) = [s for s in tr.root.walk() if s.name == "query.canonical"]
+        assert set(sp.attrs) == {"boxes_in", "boxes_out"}
+        assert sp.attrs["boxes_in"] >= 1
+        assert sp.attrs["boxes_out"] == res.n_rows
+        rows.append(res.n_rows)
+    assert max(rows) > 1
+
+
 def test_tracing_off_makes_no_span_and_no_profiler_range(monkeypatch):
     log, names = _store()
     log.prov_query(names, CELLS)  # build the index before counting
