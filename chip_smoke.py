@@ -914,9 +914,9 @@ def check_tile_kernel(torch, rj, ref, timer, q, r, tq_host, tr_host, n_attrs, bq
 def check_frontier(torch, rj, ref, timer, ops_mod, segs, n_attrs, bq, br, name):
     """``check_tile_kernel`` on the block-diagonal schedule of the frontier
     ``segs`` at ``bq`` x ``br``, with its pair pipeline timed."""
-    sched = ops_mod._blockdiag_schedule(segs, n_attrs, bq, br)
-    q = torch.from_numpy(sched.q).to("cuda")
-    r = torch.from_numpy(sched.r).to("cuda")
+    packs = [ops_mod.pack_table_side(s[2], s[3], "cuda") for s in segs]
+    sched = ops_mod._blockdiag_schedule(segs, n_attrs, bq, br, packs)
+    q, r = torch.from_numpy(sched.q).to("cuda"), sched.r
     rows = sched.q.shape[0] + sched.r.shape[0]
     label = f"{name} {len(segs)}seg/{rows}rows/{len(sched.tile_q)}tiles@{bq}x{br}"
     return check_tile_kernel(
@@ -1056,9 +1056,9 @@ class MainPathRecorder:
                 self.mask_largest[ph] = (q, r, n_attrs)
             return mask(q, r, n_attrs=n_attrs)
 
-        def record_schedule(segments, n_attrs, block_q, block_r):
+        def record_schedule(segments, n_attrs, block_q, block_r, packs):
             self.frontiers.append((self.phase, segments, n_attrs, block_q, block_r))
-            return schedule(segments, n_attrs, block_q, block_r)
+            return schedule(segments, n_attrs, block_q, block_r, packs)
 
         def record_step1(key_lo, key_hi, val_lo, val_hi, val_ref, i):
             # compress() runs its passes from the last value attribute down:

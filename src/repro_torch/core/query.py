@@ -68,6 +68,7 @@ from repro_torch.kernels.autotune import (
     GeometryTuner,
     shape_bucket,
 )
+from repro_torch.kernels.range_join import fits_lanes
 from repro_torch.obs import trace as obs_trace
 
 from .index import IntervalIndex, ragged_ranges
@@ -209,7 +210,7 @@ def _kernel_pairs(q_lo, q_hi, r_lo, r_hi, device):
     launch failures propagate — silently degrading to numpy would hide
     them.
     """
-    if device.type != "cuda" or 2 * q_lo.shape[1] > ops.LANES:
+    if device.type != "cuda" or not fits_lanes(q_lo.shape[1]):
         return None
     if not ops.fits_int32(q_lo, q_hi, r_lo, r_hi):
         return None
@@ -231,7 +232,7 @@ def dense_backend(
     ``plan.describe()`` so dense-route fallbacks are visible instead of
     silent.
     """
-    if 2 * (n_attrs + (1 if segmented else 0)) > ops.LANES:
+    if not fits_lanes(n_attrs, segmented):
         return "np:wide"
     if not int32_ok:
         return "np:i64"
@@ -761,8 +762,12 @@ class BatchedJoinExecutor:
 
     Segments the kernel cannot express faithfully (lane capacity, int32
     overflow — see the ``np:*`` notes in ``plan.describe()``) route to the
-    twin automatically.  Results are bit-identical to the serial per-hop
-    loop; ``stats`` (an ``io_stats`` bump callable) meters launches, batch
+    twin automatically.  The lane test is the kernels' one rule
+    (:func:`~repro_torch.kernels.range_join.fits_lanes`), which the
+    planner's ``np:wide`` notes and the per-hop route ask too; here it
+    counts the segment lane whenever a frontier holds more than one dense
+    segment.  Results are bit-identical to the serial per-hop loop;
+    ``stats`` (an ``io_stats`` bump callable) meters launches, batch
     occupancy, the tile schedule (``batch_tiles_visited`` vs the
     cross-product tiles the block-diagonal layout ``batch_tiles_skipped``),
     and every join by the route it took (``joins_index``,
@@ -900,18 +905,18 @@ class BatchedJoinExecutor:
         if use_kernel:
             # eligibility is per segment: one over-wide or int64 join must
             # not demote the rest of the frontier off the kernel path (and
-            # over-wide segments never inflate the shared pack width).  The
-            # lane slack keeps the dense-layout fallback — which spends one
-            # spare lane on the segment id when packing several segments —
+            # over-wide segments never inflate the shared pack width).  With
+            # several segments the lane test counts the segment lane, which
+            # keeps the dense layout (one spare lane on the segment id)
             # expressible for any eligible subset.  The table side's int32
             # verdict is the table's cached one: only the query side is
             # scanned here.
-            lane_slack = 1 if len(items) > 1 else 0
+            segmented = len(items) > 1
             with obs_trace.span("query.route", "query"):
                 kernel_idx = [
                     k
                     for k, it in enumerate(items)
-                    if 2 * (it[3].shape[1] + lane_slack) <= ops.LANES
+                    if fits_lanes(it[3].shape[1], segmented)
                     and it[1].table.int32_safe("value" if it[1].inverse else "key")
                     and ops.fits_int32(it[2], it[3])
                 ]

@@ -38,17 +38,27 @@ __all__ = [
 ]
 
 
-def check_lane_capacity(n_attrs: int, segmented: bool = False) -> None:
-    """Raise when ``n_attrs`` interval attributes cannot fit one tile.
+def fits_lanes(n_attrs: int, segmented: bool = False) -> bool:
+    """Whether ``n_attrs`` interval attributes fit one 128-lane tile.
 
     Each attribute needs a lo and a hi lane; a segmented (batched) launch
-    additionally spends one attribute on the segment id.  Beyond this the
-    dense route must run on the numpy path — callers that want the silent
-    fallback check before packing, so reaching the kernel over-capacity is
-    a hard error, not a degradation.
+    additionally spends one attribute on the segment id.  The one lane
+    rule: the kernel wrappers, the planner's ``np:wide`` notes, the per-hop
+    route and the executor all ask it.
     """
-    total = n_attrs + (1 if segmented else 0)
-    if 2 * total > LANES:
+    return 2 * (n_attrs + int(segmented)) <= LANES
+
+
+def check_lane_capacity(n_attrs: int, segmented: bool = False) -> None:
+    """Raise when ``n_attrs`` interval attributes cannot fit one tile
+    (:func:`fits_lanes`).
+
+    Beyond this the dense route must run on the numpy path — callers that
+    want the silent fallback check before packing, so reaching the kernel
+    over-capacity is a hard error, not a degradation.
+    """
+    if not fits_lanes(n_attrs, segmented):
+        total = n_attrs + (1 if segmented else 0)
         raise ValueError(
             f"range_join_mask lane capacity exceeded: {n_attrs} attributes"
             f"{' + 1 segment lane' if segmented else ''} need {2 * total} "

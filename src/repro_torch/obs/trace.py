@@ -37,10 +37,12 @@ The spans below ``execute``, with their kind and what each covers:
   joins to ``ops.segmented_range_join_pairs``; ``twin`` (kernel): the
   numpy twin's evaluation of the segments the kernel does not take;
 - ``ops.pack``, ``ops.upload``, ``ops.launch``, ``ops.extract`` (ops):
-  in both dense entry points of ``kernels/ops.py``, the host packing and
-  int32 checks (with a table side's one-time resident pack, its fill and
-  upload included), the host-to-device copies of the packs, the kernel
-  wrapper's call, and ``nonzero`` with the device-to-host copy and the
+  in the one dense pipeline of ``kernels/ops.py``, behind both its entry
+  points: the query side's int32 check and host packing, the tile bills,
+  and the table side's device operand (a resident pack's getter, with a
+  miss's one-time fill and upload; the block-diagonal padding made on
+  the device); the query side's host-to-device copy; the kernel
+  wrapper's call; and ``nonzero`` with the device-to-host copy and the
   host split of the pairs;
 - ``query.finalize`` (query): de-relativized or inverted key boxes,
   scattered to their owners;

@@ -243,6 +243,11 @@ def test_segmented_pairs_on_card_equal_cpu(cuda_device, layout):
     for (gq, gr), (wq, wr) in zip(got, want):
         np.testing.assert_array_equal(gq, wq)
         np.testing.assert_array_equal(gr, wr)
+    # the per-hop entry point: the same pipeline's one-segment dense call
+    for s, (wq, wr) in zip(segs, want):
+        gq, gr = ops.range_join_pairs(*s, device=cuda_device)
+        np.testing.assert_array_equal(gq, wq)
+        np.testing.assert_array_equal(gr, wr)
 
 
 @pytest.mark.parametrize("layout,widths", [

@@ -263,6 +263,35 @@ def test_segmented_all_empty_side_follows_reference_blockdiag(layout, empty_side
         assert len(gq) == len(gr) == 0
 
 
+@pytest.mark.parametrize("layout", ["dense", "blockdiag"])
+def test_each_dense_entry_point_call_runs_one_wrapper(monkeypatch, layout):
+    """Both entry points run one private pipeline, so wrapping both public
+    names (as a traced benchmark run does, to record each launch) sees one
+    wrapper per call: no launch is recorded twice."""
+    calls = []
+
+    def counting(name):
+        orig = getattr(tops, name)
+
+        def wrapped(*args, **kw):
+            calls.append(name)
+            return orig(*args, **kw)
+
+        return wrapped
+
+    for name in ("range_join_pairs", "segmented_range_join_pairs"):
+        monkeypatch.setattr(tops, name, counting(name))
+    segs = _segments(np.random.default_rng(SEED), 3)
+    got = tops.range_join_pairs(*segs[0], device="cpu")
+    assert calls == ["range_join_pairs"]
+    seg_pairs, info = tops.segmented_range_join_pairs(
+        segs, block_q=32, block_r=32, device="cpu", layout=layout)
+    assert calls == ["range_join_pairs", "segmented_range_join_pairs"]
+    assert info["layout"] == layout
+    np.testing.assert_array_equal(seg_pairs[0][0], got[0])
+    np.testing.assert_array_equal(seg_pairs[0][1], got[1])
+
+
 def test_cuda_device_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is available: device='cuda' is valid")

@@ -11,6 +11,7 @@ import repro.core.query as jq
 import repro.core.table as jtable
 import repro_torch.core.query as tq
 import repro_torch.core.table as ttable
+import repro_torch.kernels.range_join as trj
 
 SEED = 20240527
 
@@ -146,6 +147,13 @@ def test_dense_backend_labels_match_reference(n_attrs, int32_ok, segmented):
     want = jq.dense_backend(n_attrs, int32_ok, segmented=segmented)
     got = tq.dense_backend(n_attrs, int32_ok, segmented=segmented, device="cpu")
     assert got == want.replace("tpu", "cuda")
+    # the one lane rule the planner, the per-hop route and the executor ask
+    assert trj.fits_lanes(n_attrs, segmented) == (want != "np:wide")
+    if want == "np:wide":
+        with pytest.raises(ValueError, match="lane capacity"):
+            trj.check_lane_capacity(n_attrs, segmented=segmented)
+    else:
+        trj.check_lane_capacity(n_attrs, segmented=segmented)
 
 
 def test_executor_routes_overflow_to_twin_like_reference():

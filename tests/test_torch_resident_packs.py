@@ -1,6 +1,7 @@
 """A table's join side kept packed on the device (``CompressedTable.kernel_pack``)
 and handed to ``ops.segmented_range_join_pairs`` as ``r_packs``: the pair
-lists equal those of the host-packed launch bit for bit in every layout,
+lists equal those of the entry point's own packs and the JAX package's bit
+for bit in every layout,
 a repeated query builds the pack once and then reuses it, uploading only
 its query side, mutation drops the pack, int64 tables never build one, and
 ``DSLog.prov_query`` still answers as the JAX package does.  All on the
@@ -14,6 +15,7 @@ import repro.core.capture as jC
 import repro.core.catalog as jcat
 import repro.core.query as jq
 import repro.core.table as jtable
+import repro.kernels.ops as jops
 import repro_torch.core.capture as tC
 import repro_torch.core.catalog as tcat
 import repro_torch.core.query as tq
@@ -84,6 +86,17 @@ def test_pairs_with_resident_packs_equal_host_packs(case):
         assert gq.dtype == wq.dtype == gr.dtype == wr.dtype == np.int64
         assert gq.tobytes() == wq.tobytes() and gr.tobytes() == wr.tobytes()
     assert sum(len(q) for q, _ in want) > 0 or case == "empty_table_side"
+    # both launches above run one pipeline: hold them to the JAX package too,
+    # whose dense layout raises where every segment's side is empty
+    # (ROADMAP.md §3), so that case takes its block-diagonal answer
+    ref, rinfo = jops.segmented_range_join_pairs(
+        segments, block_q=block, block_r=block, interpret=True,
+        layout="blockdiag" if case == "empty_table_side" else layout)
+    assert case == "empty_table_side" or rinfo == ginfo
+    assert len(ref) == len(got)
+    for (gq, gr), (wq, wr) in zip(got, ref):
+        assert gq.tobytes() == np.asarray(wq, np.int64).tobytes()
+        assert gr.tobytes() == np.asarray(wr, np.int64).tobytes()
     # once resident, a launch uploads the query side alone
     before = ops.h2d_bytes
     again, _ = ops.segmented_range_join_pairs(segments, r_packs=getters, **kw)
@@ -108,7 +121,12 @@ def test_assembled_r_operand_equals_the_host_pack(layout):
         packs.append(table.kernel_pack("key", "cpu")[0])
     l_max = 3
     if layout == "blockdiag":
-        want = ops._blockdiag_schedule(segments, l_max, 64, 64).r
+        parts = []
+        for s in segments:
+            pad = np.zeros((-s[2].shape[0] % 64, ops.LANES), np.int32)
+            pad[:, :l_max] = 1  # the empty box: lo = 1, hi = 0
+            parts += [ops._pack_boxes(s[2], s[3], l_max), pad]
+        want = np.concatenate(parts)
         got = ops._blockdiag_schedule(segments, l_max, 64, 64, packs).r
     else:
         n_attrs = l_max + 1
