@@ -113,6 +113,9 @@ SEED_COUNTERS = (
     "joins_index",
     "joins_dense_kernel",
     "joins_dense_twin",
+    # index-routed joins a CUDA executor ran as a kernel segment instead
+    # (query.index_to_kernel; counted in joins_dense_kernel too)
+    "joins_index_to_kernel",
     # kernel segments whose table side was already resident on the device,
     # and those that packed and uploaded it (CompressedTable.kernel_pack)
     "table_packs_resident",

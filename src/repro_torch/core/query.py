@@ -100,6 +100,26 @@ DENSE_FRACTION = 0.25
 # below it the launch and transfers cost more than blocked numpy.
 _KERNEL_MIN_PAIRS = 1 << 20
 
+# The batched executor's index-to-kernel rule on a CUDA device
+# (index_to_kernel), in seconds: the host index's cost per probed
+# candidate (IntervalIndex.candidate_pairs), against a packed
+# range_join_mask launch's fixed cost, its cost per query row (pack and
+# upload), per mask cell (kernel and nonzero scan) and per pair (copy back
+# and split).  Least-squares fits of chip_route_costs.py on an NVIDIA H100
+# 80GB HBM3 at 700 W and its host, over 33 joins of 1-10,000 boxes against
+# 10,000-160,000-row tables, each timed after 64 MB of host writes
+# (PERF.md §6).
+INDEX_S_PER_CANDIDATE = 5.1e-8
+KERNEL_S_PER_LAUNCH = 1.0e-3
+KERNEL_S_PER_QUERY_ROW = 3.1e-7
+KERNEL_S_PER_CELL = 3.5e-12
+KERNEL_S_PER_PAIR = 6.7e-9
+# The rerouted masks of one frontier take at most this share of the
+# device's free memory (_device_free_bytes, read when the frontier's first
+# join is rerouted); a join past it keeps the index.  The rest is left to
+# the pairs' nonzero scan and the query packs.
+KERNEL_MASK_MEMORY_SHARE = 0.5
+
 
 @dataclass
 class QueryBox:
@@ -274,6 +294,57 @@ def _route_decision(
             if est > DENSE_FRACTION * nq * nr:
                 return "dense", None
     return "index", windows
+
+
+def index_to_kernel(
+    candidates: int, nq: int, nr: int, windows: tuple[np.ndarray, np.ndarray]
+) -> bool:
+    """Whether an index-routed join costs the host's
+    :meth:`IntervalIndex.candidate_pairs` more than the same join costs as
+    a segment of a packed ``range_join_mask`` launch on a CUDA device.
+
+    ``candidates`` is the exact count the index would scan
+    (:meth:`IntervalIndex.estimate_candidates`) over its probed
+    ``windows``, ``nq`` × ``nr`` the mask.  A join whose candidates cost
+    less than the launch alone stays, before the pairs are estimated
+    (:func:`_pairs_estimate`): most joins stop there.
+    """
+    host = INDEX_S_PER_CANDIDATE * candidates
+    if host <= KERNEL_S_PER_LAUNCH:
+        return False
+    card = (
+        KERNEL_S_PER_LAUNCH
+        + KERNEL_S_PER_QUERY_ROW * nq
+        + KERNEL_S_PER_CELL * nq * nr
+        + KERNEL_S_PER_PAIR * _pairs_estimate(windows, nr)
+    )
+    return card < host
+
+
+def _pairs_estimate(windows: tuple[np.ndarray, np.ndarray], nr: int) -> float:
+    """Expected overlap pairs from the index's candidate windows: each
+    attribute keeps ``window / nr`` of the rows, independently of the
+    others (at most the smallest window a row)."""
+    starts, ends = windows
+    return float((nr * np.prod((ends - starts) / nr, axis=1)).sum())
+
+
+def _mask_bytes(nq: int, nr: int) -> int:
+    """Device bytes a kernel segment's mask may take: its rows padded to
+    the launch's blocks (the block-diagonal layout's tiles; a dense mask of
+    the same segments is never larger)."""
+    bq, br = DEFAULT_GEOMETRY
+    return -(-nq // bq) * bq * (-(-nr // br) * br)
+
+
+def _device_free_bytes(device) -> int:
+    """The driver's free memory on ``device``.  It leaves out the blocks
+    the caching allocator holds unused, so it is a lower bound of what a
+    launch can take; it costs one driver call (57 µs on an H100, where the
+    allocator's own statistics cost 114-280 µs)."""
+    import torch
+
+    return int(torch.cuda.mem_get_info(device)[0])
 
 
 def _no_stats(key: str, n: int = 1) -> None:
@@ -745,9 +816,12 @@ class BatchedJoinExecutor:
     The planner hands every :class:`JoinRequest` ready in a frontier —
     across plan branches and, on sharded stores, across exchange-free
     sub-plans — to :meth:`run`.  Index-routed requests execute through the
-    per-table :class:`IntervalIndex` as before; every dense-routed request
-    becomes one *segment* of a single packed ``[NQ, 128] × [NR, 128]``
-    evaluation:
+    per-table :class:`IntervalIndex` as before, save on a CUDA executor the
+    ones :func:`index_to_kernel` finds cheaper as a kernel segment and
+    whose masks fit ``KERNEL_MASK_MEMORY_SHARE`` of the device's free
+    memory: those share one packed launch of their own
+    (``joins_index_to_kernel``).  Every dense-routed request becomes one
+    *segment* of a single packed ``[NQ, 128] × [NR, 128]`` evaluation:
 
     * on ``device="cuda"``, one
       :func:`repro_torch.kernels.ops.segmented_range_join_pairs` launch of
@@ -867,6 +941,8 @@ class BatchedJoinExecutor:
         """
         results: list[list[QueryBox] | None] = [None] * len(requests)
         dense: list[tuple] = []
+        heavy: list[tuple] = []
+        room: int | None = None  # mask bytes the rerouted joins may still take
         for i, req in enumerate(requests):
             pre = _prepare_batch(req.queries, req.table, req.inverse)
             if pre[0] == "done":
@@ -877,17 +953,66 @@ class BatchedJoinExecutor:
                 u_lo, u_hi, r_lo, r_hi, index_get, req.path
             )
             if route == "index":
+                route, windows = self._index_route(
+                    req, u_lo, u_hi, r_lo, index_get, windows
+                )
+            if route == "kernel":
+                need = _mask_bytes(u_lo.shape[0], r_lo.shape[0])
+                if room is None:
+                    room = int(
+                        KERNEL_MASK_MEMORY_SHARE * _device_free_bytes(self._device)
+                    )
+                if need <= room:
+                    room -= need
+                else:
+                    route = "index"
+            item = (i, req, u_lo, u_hi, inv, r_lo, r_hi)
+            if route == "index":
                 self._stats("joins_index")
                 ui, ri = index_get().candidate_pairs(u_lo, u_hi, windows)
                 results[i] = _finalize_batch(
                     req.queries, req.table, req.inverse,
                     u_lo, u_hi, inv, ui, ri, req.merge,
                 )
+            elif route == "kernel":
+                self._stats("joins_index_to_kernel")
+                heavy.append(item)
             else:
-                dense.append((i, req, u_lo, u_hi, inv, r_lo, r_hi))
+                dense.append(item)
         if dense:
             self._run_dense(dense, results, workers)
+        if heavy:
+            # a launch of their own, kept out of the occupancy feedback the
+            # planner prices its batched route by: its routes stay its own
+            self._run_dense(heavy, results, observe=False)
         return results  # type: ignore[return-value]
+
+    def _index_route(self, req, u_lo, u_hi, r_lo, index_get, windows):
+        """An index-routed join's route on this executor, and the index's
+        windows, probed once: ``"kernel"`` where :func:`index_to_kernel`
+        finds the packed kernel launch cheaper, else ``"index"``.
+
+        Only a CUDA executor that runs the kernel asks, and only for joins
+        the kernel takes (the lane rule with a segment lane, both sides'
+        int32 range); everywhere else the route is the planner's.
+        """
+        l = u_lo.shape[1]
+        if (
+            self._device.type != "cuda"
+            or self._engine == "twin"
+            or not l
+            or not fits_lanes(l, segmented=True)
+            or not req.table.int32_safe("value" if req.inverse else "key")
+            or not ops.fits_int32(u_lo, u_hi)
+        ):
+            return "index", windows
+        with obs_trace.span("query.index", "query"):
+            index: IntervalIndex = index_get()
+            if windows is None:
+                windows = index.probe_windows(u_lo, u_hi)
+            candidates = index.estimate_candidates(u_lo, u_hi, windows)
+            heavy = index_to_kernel(candidates, u_lo.shape[0], r_lo.shape[0], windows)
+        return ("kernel" if heavy else "index"), windows
 
     # ------------------------------------------------------------------ #
     def _run_dense(
@@ -895,8 +1020,11 @@ class BatchedJoinExecutor:
         items: list[tuple],
         results: list,
         workers: int | None = None,
+        observe: bool = True,
     ) -> None:
-        """Evaluate and finalize every dense segment, one packed dispatch."""
+        """Evaluate and finalize every dense segment, one packed dispatch;
+        ``observe`` feeds the kernel launch's tile occupancy to
+        :attr:`measured_waste`."""
         kernel_idx: list[int] = []
         device = self._device
         use_kernel = self._engine == "kernel" or (
@@ -973,10 +1101,11 @@ class BatchedJoinExecutor:
             self._stats("batch_rows_padded", info["rows_padded"])
             self._stats("batch_tiles_visited", info["tiles_visited"])
             self._stats("batch_tiles_skipped", info["tiles_skipped"])
-            self._observe_occupancy(
-                float(info["tiles_visited"]) * geom[0] * geom[1],
-                float(sum(nq * nr for nq, nr, _ in shapes)),
-            )
+            if observe:
+                self._observe_occupancy(
+                    float(info["tiles_visited"]) * geom[0] * geom[1],
+                    float(sum(nq * nr for nq, nr, _ in shapes)),
+                )
         done = set(kernel_idx)
         rest = [k for k in range(len(items)) if k not in done]
         if not rest:

@@ -309,6 +309,113 @@ def test_dslog_on_card_equals_cpu(cuda_device, rels):
     assert rj.range_join_mask.launches + rj.range_join_tile_masks.launches > before
 
 
+def _per_cell_table(side=200, drop=407):
+    """One box of interval length 1 per cell of a ``side`` x ``side`` array,
+    ``drop`` cells left out (39,593 rows at the defaults), the value the key."""
+    rng = np.random.default_rng(SEED)
+    keep = np.sort(rng.choice(side * side, side * side - drop, replace=False))
+    cells = np.stack(np.unravel_index(keep, (side, side)), axis=1).astype(np.int64)
+    zeros = np.zeros_like(cells)
+    return core.CompressedTable((side, side), (side, side), cells, cells.copy(), zeros,
+                                zeros.copy(), np.tile(np.arange(2), (cells.shape[0], 1)))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n_boxes,rerouted", [(3318, True), (10, False)])
+def test_heavy_index_join_runs_on_the_card(cuda_device, monkeypatch, inverse, n_boxes,
+                                           rerouted):
+    """An index-routed join of 3,318 one-cell boxes against a 39,593-row
+    per-cell table runs as a kernel segment on a CUDA executor: its pairs
+    are ``IntervalIndex.candidate_pairs``' in the same order, its answers
+    the index route's, and ``joins_index_to_kernel`` counts it.  A 10-box
+    frontier keeps the index."""
+    import repro_torch.core.query as tq
+
+    table = _per_cell_table()
+    rng = np.random.default_rng(SEED + n_boxes)
+    lo = np.stack(np.unravel_index(rng.choice(40_000, n_boxes, replace=False), (200, 200)),
+                  axis=1).astype(np.int64)
+    req = lambda: tq.JoinRequest([tq.QueryBox((200, 200), lo, lo.copy())], table,  # noqa: E731
+                                 inverse=inverse, merge=False, path="index")
+    want = tq.BatchedJoinExecutor(device="cpu").run([req()])
+    seen, finalize = [], tq._finalize_batch
+
+    def spy(queries, table, inverse, u_lo, u_hi, inv, ui, ri, merge):
+        seen.append((u_lo, u_hi, ui, ri))
+        return finalize(queries, table, inverse, u_lo, u_hi, inv, ui, ri, merge)
+
+    monkeypatch.setattr(tq, "_finalize_batch", spy)
+    stats = {}
+    before = rj.range_join_mask.launches
+    got = tq.BatchedJoinExecutor(
+        stats=lambda key, n=1: stats.__setitem__(key, stats.get(key, 0) + n),
+        device=cuda_device,
+    ).run([req()])
+    assert got[0][0].lo.tobytes() == want[0][0].lo.tobytes()
+    assert got[0][0].hi.tobytes() == want[0][0].hi.tobytes()
+    ((u_lo, u_hi, ui, ri),) = seen
+    index = table.val_index() if inverse else table.key_index()
+    w_ui, w_ri = index.candidate_pairs(u_lo, u_hi)
+    assert ui.tobytes() == w_ui.tobytes() and ri.tobytes() == w_ri.tobytes()
+    if rerouted:
+        assert stats["joins_index_to_kernel"] == stats["joins_dense_kernel"] == 1
+        assert "joins_index" not in stats
+        assert rj.range_join_mask.launches == before + 1
+    else:
+        assert stats == {"joins_index": 1}
+        assert rj.range_join_mask.launches == before
+
+
+
+def test_heavy_index_joins_past_the_memory_room_stay_on_the_index(cuda_device, monkeypatch):
+    """Rerouted joins take the device's free memory, up to
+    ``KERNEL_MASK_MEMORY_SHARE`` of it, in frontier order: with
+    room for one of two heavy joins' masks the first runs on the card and
+    the second keeps the index, and both give the CPU executor's answers
+    and ``candidate_pairs``' pairs in the same order."""
+    import repro_torch.core.query as tq
+
+    free = tq._device_free_bytes(cuda_device)
+    assert 0 < free <= torch.cuda.get_device_properties(cuda_device).total_memory
+    table = _per_cell_table()
+    reqs, frontiers = [], []
+    for k, n_boxes in enumerate((3318, 3400)):
+        rng = np.random.default_rng(SEED + k)
+        lo = np.stack(np.unravel_index(rng.choice(40_000, n_boxes, replace=False),
+                                       (200, 200)), axis=1).astype(np.int64)
+        frontiers.append(lo)
+    req = lambda: [tq.JoinRequest([tq.QueryBox((200, 200), lo, lo.copy())], table,  # noqa: E731
+                                  merge=False, path="index") for lo in frontiers]
+    want = tq.BatchedJoinExecutor(device="cpu").run(req())
+    need = [tq._mask_bytes(lo.shape[0], table.n_rows) for lo in frontiers]
+    room = need[0] + need[1] - 1
+    monkeypatch.setattr(tq, "_device_free_bytes",
+                        lambda device: int(room / tq.KERNEL_MASK_MEMORY_SHARE) + 1)
+    seen, finalize = [], tq._finalize_batch
+
+    def spy(queries, table, inverse, u_lo, u_hi, inv, ui, ri, merge):
+        seen.append((u_lo.shape[0], u_lo, u_hi, ui, ri))
+        return finalize(queries, table, inverse, u_lo, u_hi, inv, ui, ri, merge)
+
+    monkeypatch.setattr(tq, "_finalize_batch", spy)
+    stats = {}
+    before = rj.range_join_mask.launches
+    got = tq.BatchedJoinExecutor(
+        stats=lambda key, n=1: stats.__setitem__(key, stats.get(key, 0) + n),
+        device=cuda_device,
+    ).run(req())
+    for g, w in zip(got, want):
+        assert g[0].lo.tobytes() == w[0].lo.tobytes()
+        assert g[0].hi.tobytes() == w[0].hi.tobytes()
+    assert stats["joins_index_to_kernel"] == stats["joins_dense_kernel"] == 1
+    assert stats["joins_index"] == 1
+    assert rj.range_join_mask.launches == before + 1
+    index = table.key_index()
+    assert sorted(n for n, *_ in seen) == [3318, 3400]
+    for _, u_lo, u_hi, ui, ri in seen:
+        w_ui, w_ri = index.candidate_pairs(u_lo, u_hi)
+        assert ui.tobytes() == w_ui.tobytes() and ri.tobytes() == w_ri.tobytes()
+
 def _sorted_table(rng, n, n_keys):
     p = np.zeros((n, 128), np.int32)
     for c in range(n_keys):

@@ -12,6 +12,7 @@ import repro.core.table as jtable
 import repro_torch.core.query as tq
 import repro_torch.core.table as ttable
 import repro_torch.kernels.range_join as trj
+from repro_torch.kernels import ops
 
 SEED = 20240527
 
@@ -192,3 +193,154 @@ def test_executor_and_joins_refuse_cuda_without_gpu():
         tq.theta_join(tb, tt)
     with pytest.raises(ValueError, match="engine"):
         tq.BatchedJoinExecutor(device="cpu", engine="pallas")
+
+
+def _per_cell_tables(side=200, drop=407, seed=SEED):
+    """A per-cell 2-D table in both packages: one box of interval length 1
+    per cell of a ``side`` x ``side`` array, ``drop`` cells left out (39,593
+    rows at the defaults, as the fig 8/9 pipelines' per-cell tables), the
+    value the key."""
+    r = np.random.default_rng(seed)
+    keep = np.sort(r.choice(side * side, side * side - drop, replace=False))
+    cells = np.stack(np.unravel_index(keep, (side, side)), axis=1).astype(np.int64)
+    zeros = np.zeros_like(cells)
+    args = ((side, side), (side, side), cells, cells.copy(), zeros, zeros.copy(),
+            np.tile(np.arange(2), (cells.shape[0], 1)))
+    return jtable.CompressedTable(*args), ttable.from_reference_arrays(*args)
+
+
+def _one_cell_frontier(n, side=200, seed=SEED):
+    r = np.random.default_rng(seed + n)
+    flat = r.choice(side * side, n, replace=False)
+    lo = np.stack(np.unravel_index(flat, (side, side)), axis=1).astype(np.int64)
+    return lo, lo.copy()
+
+
+@pytest.mark.parametrize("engine", [None, "kernel", "twin"])
+@pytest.mark.parametrize("path", ["index", "auto"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_executor_keeps_heavy_index_joins_on_cpu(engine, path, inverse):
+    """On ``device="cpu"`` a heavy index join (3,318 one-cell boxes against
+    a 39,593-row per-cell table, which a CUDA executor sends to the kernel)
+    keeps the reference's route, answers and batch meters."""
+    jt, tt = _per_cell_tables()
+    lo, hi = _one_cell_frontier(3318)
+    jb, tb = jq.QueryBox((200, 200), lo, hi), tq.QueryBox((200, 200), lo, hi)
+    jstats, tstats = {}, {}
+    meter = lambda s: (lambda key, n=1: s.__setitem__(key, s.get(key, 0) + n))  # noqa: E731
+    jex = jq.BatchedJoinExecutor(stats=meter(jstats), interpret=True, engine=engine)
+    tex = tq.BatchedJoinExecutor(stats=meter(tstats), device="cpu", engine=engine)
+    want = jex.run([jq.JoinRequest([jb], jt, inverse=inverse, merge=False, path=path)])
+    got = tex.run([tq.JoinRequest([tb], tt, inverse=inverse, merge=False, path=path)])
+    _same(got[0][0], want[0][0])
+    assert tstats.pop("joins_index") == 1
+    assert tstats == jstats
+
+
+def test_index_to_kernel_sends_heavy_frontiers_to_the_kernel():
+    """With the shipped constants, a 3,318-box one-cell frontier against a
+    39,593-row per-cell table costs the host index more than a kernel
+    segment; a 10-box frontier does not."""
+    _, tt = _per_cell_tables()
+    index = tt.key_index()
+    nr = tt.n_rows
+    assert nr == 39_593
+    verdicts = {}
+    for n in (3318, 10):
+        lo, hi = _one_cell_frontier(n)
+        windows = index.probe_windows(lo, hi)
+        candidates = index.estimate_candidates(lo, hi, windows)
+        pairs = tq._pairs_estimate(windows, nr)
+        # the estimate is the pairs' count on a per-cell table, and at most
+        # the candidates
+        assert pairs == pytest.approx(index.candidate_pairs(lo, hi, windows)[0].size, rel=0.05)
+        assert pairs <= candidates
+        verdicts[n] = tq.index_to_kernel(candidates, n, nr, windows)
+    assert verdicts == {3318: True, 10: False}
+
+
+def test_heavy_index_join_past_the_memory_room_stays_on_the_index(monkeypatch):
+    """A CUDA executor reroutes a heavy join only while its mask fits the
+    share of the device's free memory: with less room the join keeps the
+    index (run here, on the host), gives the reference's answers and never
+    reaches the device."""
+    import torch
+
+    _, tt = _per_cell_tables()
+    lo, hi = _one_cell_frontier(3318)
+    need = tq._mask_bytes(3318, tt.n_rows)
+    assert need >= 3318 * tt.n_rows
+    free = []
+
+    def short_of_room(device):
+        free.append(device)
+        return int((need - 1) / tq.KERNEL_MASK_MEMORY_SHARE)
+
+    monkeypatch.setattr(tq, "_device_free_bytes", short_of_room)
+    stats = {}
+    tex = tq.BatchedJoinExecutor(
+        stats=lambda key, n=1: stats.__setitem__(key, stats.get(key, 0) + n), device="cpu"
+    )
+    tex._device = torch.device("cuda")  # the route rule of a CUDA executor
+    req = lambda: tq.JoinRequest([tq.QueryBox((200, 200), lo, hi)], tt,  # noqa: E731
+                                 merge=False, path="index")
+    assert tex._index_route(req(), lo, hi, tt.key_lo, tt.key_index, None)[0] == "kernel"
+    got = tex.run([req()])
+    want = tq.BatchedJoinExecutor(device="cpu").run([req()])
+    _same(got[0][0], want[0][0])
+    assert stats == {"joins_index": 1}
+    assert free == [tex._device]
+
+
+@pytest.mark.parametrize("case", range(12))
+def test_mask_bytes_bound_the_launch_mask(case):
+    """The room the rule charges a rerouted join (``_mask_bytes``) is at
+    least the mask the launch allocates for it, in whichever layout the
+    launch takes for a frontier of such joins."""
+    r = np.random.default_rng(SEED + case)
+    bq, br = tq.DEFAULT_GEOMETRY
+    segs = []
+    for _ in range(1 + case % 4):
+        nq, nr = (int(x) for x in r.integers(1, 700, 2))
+        q_lo = r.integers(0, 50, (nq, 2)).astype(np.int64)
+        t_lo = r.integers(0, 50, (nr, 2)).astype(np.int64)
+        segs.append((q_lo, q_lo + 1, t_lo, t_lo + 2))
+    _, info = ops.segmented_range_join_pairs(segs, block_q=bq, block_r=br, device="cpu")
+    nq_all = sum(s[0].shape[0] for s in segs)
+    nr_all = sum(s[2].shape[0] for s in segs)
+    mask = nq_all * nr_all if info["layout"] == "dense" else info["tiles_visited"] * bq * br
+    assert mask <= sum(tq._mask_bytes(s[0].shape[0], s[2].shape[0]) for s in segs)
+
+
+@pytest.mark.parametrize("wide", ["table", "query"])
+def test_heavy_index_join_past_int32_stays_on_the_index(wide):
+    """A CUDA executor never sends a join whose bounds leave the int32
+    range to the kernel: the join keeps the index (run here, on the host,
+    where it does not touch the device), while the same join in range would
+    go to the kernel."""
+    import torch
+
+    _, tt = _per_cell_tables()
+    lo, hi = _one_cell_frontier(3318)
+    stats = {}
+    tex = tq.BatchedJoinExecutor(
+        stats=lambda key, n=1: stats.__setitem__(key, stats.get(key, 0) + n), device="cpu"
+    )
+    tex._device = torch.device("cuda")  # the route rule of a CUDA executor
+    req = tq.JoinRequest([tq.QueryBox((200, 200), lo, hi)], tt, merge=False, path="index")
+    assert tex._index_route(req, lo, hi, tt.key_lo, tt.key_index, None)[0] == "kernel"
+    if wide == "table":
+        _, far = _per_cell_tables()
+        far.key_lo, far.key_hi = far.key_lo + 2**31, far.key_hi + 2**31
+        lo, hi = lo + 2**31, hi + 2**31
+        table = far
+    else:
+        hi = hi.copy()
+        hi[0, 1] = 2**31
+        table = tt
+    got = tex.run([tq.JoinRequest([tq.QueryBox((200, 200), lo, hi)], table, merge=False,
+                                  path="index")])
+    want = tq.BatchedJoinExecutor(device="cpu").run(
+        [tq.JoinRequest([tq.QueryBox((200, 200), lo, hi)], table, merge=False, path="index")])
+    _same(got[0][0], want[0][0])
+    assert stats == {"joins_index": 1}
