@@ -113,6 +113,9 @@ SEED_COUNTERS = (
     "joins_index",
     "joins_dense_kernel",
     "joins_dense_twin",
+    # query-side boxes (the pooled distinct frontier boxes) of every join a
+    # query runs, whichever route and engine ran it
+    "frontier_boxes",
     # index-routed joins a CUDA executor ran as a kernel segment instead
     # (query.index_to_kernel; counted in joins_dense_kernel too)
     "joins_index_to_kernel",

@@ -365,7 +365,8 @@ def _route_pairs(
 
     ``stats`` (an ``io_stats`` bump callable) counts the join under the
     route it took: ``joins_index``, ``joins_dense_kernel`` (one
-    ``range_join_mask`` launch) or ``joins_dense_twin`` (blocked numpy).
+    ``range_join_mask`` launch) or ``joins_dense_twin`` (blocked numpy),
+    and its ``nq`` query-side boxes under ``frontier_boxes``.
     """
     nq, nr = q_lo.shape[0], r_lo.shape[0]
     if nq == 0 or nr == 0:
@@ -373,6 +374,7 @@ def _route_pairs(
             raise ValueError(f"unknown join path {path!r}")
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
     stats = stats if stats is not None else _no_stats
+    stats("frontier_boxes", nq)
     route, windows = _route_decision(q_lo, q_hi, r_lo, r_hi, index_get, path)
     if route == "index":
         stats("joins_index")
@@ -844,8 +846,9 @@ class BatchedJoinExecutor:
     ``stats`` (an ``io_stats`` bump callable) meters launches, batch
     occupancy, the tile schedule (``batch_tiles_visited`` vs the
     cross-product tiles the block-diagonal layout ``batch_tiles_skipped``),
-    and every join by the route it took (``joins_index``,
-    ``joins_dense_kernel``, ``joins_dense_twin``).  A kernel segment's
+    every join by the route it took (``joins_index``,
+    ``joins_dense_kernel``, ``joins_dense_twin``) and every join's pooled
+    query-side boxes (``frontier_boxes``).  A kernel segment's
     table side is the table's resident pack
     (:meth:`~repro_torch.core.table.CompressedTable.kernel_pack`): a launch
     packs and uploads only the query side, and ``table_packs_resident`` /
@@ -949,6 +952,7 @@ class BatchedJoinExecutor:
                 results[i] = pre[1]
                 continue
             _, u_lo, u_hi, inv, r_lo, r_hi, index_get = pre
+            self._stats("frontier_boxes", u_lo.shape[0])
             route, windows = _route_decision(
                 u_lo, u_hi, r_lo, r_hi, index_get, req.path
             )

@@ -357,6 +357,7 @@ def test_heavy_index_join_runs_on_the_card(cuda_device, monkeypatch, inverse, n_
     index = table.val_index() if inverse else table.key_index()
     w_ui, w_ri = index.candidate_pairs(u_lo, u_hi)
     assert ui.tobytes() == w_ui.tobytes() and ri.tobytes() == w_ri.tobytes()
+    assert stats.pop("frontier_boxes") == n_boxes
     if rerouted:
         assert stats["joins_index_to_kernel"] == stats["joins_dense_kernel"] == 1
         assert "joins_index" not in stats

@@ -91,6 +91,13 @@ def _requests(mod, tables, boxes, merge):
     return reqs
 
 
+def _distinct_boxes(queries) -> int:
+    """The pooled distinct boxes a join of ``queries`` runs on: what the
+    port's ``frontier_boxes`` counter adds for it."""
+    rows = np.concatenate([np.concatenate([q.lo, q.hi], axis=1) for q in queries])
+    return int(np.unique(rows, axis=0).shape[0])
+
+
 def _executor_case(seed, n_tables):
     pairs = [_tables(int(40 + 30 * k), seed=seed + k) for k in range(n_tables)]
     j_boxes, t_boxes = [], []
@@ -117,7 +124,8 @@ def test_executor_matches_reference(engine, merge, seed, n_tables):
     jex = jq.BatchedJoinExecutor(stats=meter(jstats), interpret=True, engine=engine)
     tex = tq.BatchedJoinExecutor(stats=meter(tstats), device="cpu", engine=engine)
     want = jex.run(_requests(jq, jtabs, jbox, merge))
-    got = tex.run(_requests(tq, ttabs, tbox, merge))
+    treqs = _requests(tq, ttabs, tbox, merge)
+    got = tex.run(treqs)
     assert len(got) == len(want)
     for g_list, w_list in zip(got, want):
         for g, w in zip(g_list, w_list):
@@ -131,6 +139,8 @@ def test_executor_matches_reference(engine, merge, seed, n_tables):
     packs = {k: tstats.pop(k) for k in ("table_packs_built", "table_packs_resident")
              if k in tstats}
     assert packs == ({"table_packs_built": jstats["joins_packed"]} if engine == "kernel" else {})
+    # and the query-side boxes of every join
+    assert tstats.pop("frontier_boxes") == sum(_distinct_boxes(r.queries) for r in treqs)
     assert tstats == jstats
     assert tstats["batch_tiles_visited"] > 0
     assert tex.measured_waste == jex.measured_waste
@@ -177,6 +187,7 @@ def test_executor_routes_overflow_to_twin_like_reference():
     _same(got[0][0], want[0][0])
     # the port also counts the join by its route: the twin, not the kernel
     assert tstats.pop("joins_dense_twin") == 1 and "joins_dense_kernel" not in tstats
+    assert tstats.pop("frontier_boxes") == _distinct_boxes([tb])
     assert tstats == jstats
 
 
@@ -234,6 +245,7 @@ def test_executor_keeps_heavy_index_joins_on_cpu(engine, path, inverse):
     got = tex.run([tq.JoinRequest([tb], tt, inverse=inverse, merge=False, path=path)])
     _same(got[0][0], want[0][0])
     assert tstats.pop("joins_index") == 1
+    assert tstats.pop("frontier_boxes") == 3318
     assert tstats == jstats
 
 
@@ -288,7 +300,7 @@ def test_heavy_index_join_past_the_memory_room_stays_on_the_index(monkeypatch):
     got = tex.run([req()])
     want = tq.BatchedJoinExecutor(device="cpu").run([req()])
     _same(got[0][0], want[0][0])
-    assert stats == {"joins_index": 1}
+    assert stats == {"joins_index": 1, "frontier_boxes": 3318}
     assert free == [tex._device]
 
 
@@ -343,4 +355,4 @@ def test_heavy_index_join_past_int32_stays_on_the_index(wide):
     want = tq.BatchedJoinExecutor(device="cpu").run(
         [tq.JoinRequest([tq.QueryBox((200, 200), lo, hi)], table, merge=False, path="index")])
     _same(got[0][0], want[0][0])
-    assert stats == {"joins_index": 1}
+    assert stats == {"joins_index": 1, "frontier_boxes": 3318}
